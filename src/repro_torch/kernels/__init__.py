@@ -1,0 +1,8 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a).
+
+Each kernel package ships ``csrc/*.cu`` (the kernel, with a plain C
+launcher), ``<name>.py`` (nvcc build, ctypes binding, checked launch
+wrappers with launch counts), ``ref.py`` (the plain PyTorch version) and
+``ops.py`` (the public entry point: kernel for CUDA tensors, plain version
+for CPU tensors).
+"""
