@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the Bloom-probe kernels from ``src/repro_torch`` with nvcc (into
-``build/repro_torch/``), then:
+Builds the port's CUDA kernels from ``src/repro_torch`` (Bloom probe, paged
+decode attention, flash attention forward), one nvcc per source, all
+started together, into ``build/repro_torch/``, then:
 
 1. kernels vs plain: both CUDA launchers against their plain PyTorch
    versions on the card, bit for bit, on adversarial keys (0, 2**64-1,
@@ -28,13 +29,43 @@ Builds the Bloom-probe kernels from ``src/repro_torch`` with nvcc (into
    again through kernel, plain version and numpy, compared bit for bit,
    and timed with CUDA events beside the least time the card could take.
 
-Each phase prints one JSON line; the card's name and power limit come
-from nvidia-smi.  The last line is ``{"ok": true, "device": {...}}``.  Any
-failed check raises, so the exit code is non-zero and no result prints.
-Exits non-zero at once when no CUDA card is visible.
+5. attention kernels vs plain: paged decode attention and flash attention
+   forward against their plain PyTorch versions on the card, in fp32 and
+   bf16, at the sweep shapes of ``tests/test_kernels.py``, flash at ragged
+   prompt lengths (1000 and 1531, causal, GQA 2:1, D 128) and paged at the
+   serving engine's shapes; fp32 within 2e-5, bf16 within 2e-2;
+6. serving identity: Qwen3-1.7B at full width cut to 2 layers, fp32
+   weights from one seeded generator, serves the same four requests on
+   ``torch_device="cuda"`` and on ``"cpu"`` with a device KV pool small
+   enough that sequences demote and decode from the host tier: tokens,
+   manager stats and pool byte counters identical, each step's logits
+   within 1e-4 of the CPU's relative to their largest magnitude (fp32 with
+   TF32 off, so only the order of sums differs; a wrong kernel is off by
+   O(1));
+7. the serving path at full size: Qwen3-1.7B, all 28 layers, bf16 random
+   weights (seed 0) on the card, 24 requests of 512-1536 prompt tokens and
+   64 new tokens each through ``ServingEngine`` over HHZS-tiered paged KV,
+   with the launch counts zeroed just before ``run`` and read just after:
+   one flash launch per layer of each prefill, one paged launch per layer
+   of each decode step, no Bloom launch; tier migrations must fire;
+8. attention kernels at the serving path's shapes: calls captured in
+   phase 7 again through kernel, plain version and
+   ``scaled_dot_product_attention`` (the library's time, never used by the
+   port), compared and timed beside the least time the card could take.
+
+TF32 is off for matmuls and cuDNN (the defaults for matmuls), so fp32
+products on the card are full fp32.  Each phase prints one JSON line; the
+card's name and power limit come from nvidia-smi.  The last line is
+``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
+code is non-zero and no result prints.  Exits non-zero at once when no
+CUDA card is visible.  ``--phases 5,6`` runs only the phases named (for a
+short first call after a kernel edit); it prints no ``kernels`` or ``ok``
+line.
 """
 from __future__ import annotations
 
+import argparse
+import copy
 import dataclasses
 import json
 import subprocess
@@ -48,9 +79,24 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+import torch.nn.functional as F  # noqa: E402
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.bloom_probe import bloom_probe as kernel  # noqa: E402
 from repro_torch.kernels.bloom_probe import ref  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention as flash_kernel)
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.paged_attention import (  # noqa: E402
+    paged_attention as paged_kernel)
+from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
+from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
+    paged_attention_ref)
 from repro_torch.lsm import DB, ScenarioConfig, filters  # noqa: E402
+from repro_torch.models import init_model  # noqa: E402
+from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.workloads import (YCSB, PoissonArrivals,  # noqa: E402
                                    run_load, run_open_loop, run_workload)
 
@@ -64,7 +110,15 @@ SOURCE = "src/repro_torch/kernels/bloom_probe/csrc/bloom_probe.cu"
 REPLACES = {
     "bloom_probe": "src/repro/kernels/bloom_probe/bloom_probe.py:25",
     "bloom_probe_pairs": "src/repro/kernels/bloom_probe/ref.py:49",
+    "paged_attention":
+        "src/repro/kernels/paged_attention/paged_attention.py:29",
+    "flash_attention":
+        "src/repro/kernels/flash_attention/flash_attention.py:29",
 }
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
+# phase 7: the serving path at full size
+SERVE_REQUESTS = 24
+SERVE_NEW_TOKENS = 64
 
 
 def emit(**obj) -> None:
@@ -400,18 +454,30 @@ def device_ms(fn, calls, kernel_symbol: str):
     """Mean device time of one launch from ``torch.profiler``'s CUDA
     activity (the kernel alone, without the host's launch path), or None
     when the profiler records no device time for it."""
+    return device_ms_each({kernel_symbol: (fn, calls)})[kernel_symbol]
+
+
+def device_ms_each(runs: dict) -> dict:
+    """``device_ms`` for several kernels in one profiler session: runs maps
+    a kernel symbol to (fn, calls)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for c in calls:
-            fn(*c)
+        for fn, calls in runs.values():
+            for c in calls:
+                fn(*c)
         torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for ev in prof.key_averages():
-        if kernel_symbol in ev.key:
-            total_us += getattr(ev, "device_time_total",
-                                getattr(ev, "cuda_time_total", 0.0))
-            count += ev.count
-    return total_us / count / 1e3 if count and total_us > 0 else None
+    events = prof.key_averages()
+    out = {}
+    for symbol in runs:
+        total_us, count = 0.0, 0
+        for ev in events:
+            if symbol in ev.key:
+                total_us += getattr(ev, "device_time_total",
+                                    getattr(ev, "cuda_time_total", 0.0))
+                count += ev.count
+        out[symbol] = total_us / count / 1e3 if count and total_us > 0 \
+            else None
+    return out
 
 
 KERNELS = {"bloom_probe": (kernel.bloom_probe, ref.bloom_probe_ref),
@@ -490,32 +556,480 @@ def phase_captured(rec: Recorder, pk_rec: Recorder, launched: dict,
     return kernels
 
 
+# ----------------------------------------------------------------------
+# phase 5: attention kernels vs plain on seeded inputs
+# ----------------------------------------------------------------------
+FLASH_CASES = [(1, 4, 4, 256, 64), (2, 8, 2, 512, 64), (1, 8, 1, 256, 128),
+               (1, 16, 8, 1000, 128), (1, 16, 8, 1531, 128)]
+FLASH_MASKS = [(True, None), (False, None), (True, 64)]
+# (b, kv, g, pages, page_size, max_pages, d); the last is the engine's
+PAGED_CASES = [(2, 4, 2, 16, 16, 4, 64), (3, 2, 4, 32, 8, 8, 128),
+               (1, 1, 8, 8, 16, 2, 64), (1, 8, 2, 512, 16, 96, 128)]
+
+
+def within(got: torch.Tensor, want: torch.Tensor, dtype) -> tuple:
+    """(max abs error, |got - want| <= tol + tol * |want| everywhere)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    tol = TOL[dtype]
+    return float(err.max()), bool((err <= tol + tol * w.abs()).all())
+
+
+def randn(rng, shape, dtype, dev) -> torch.Tensor:
+    a = rng.standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(a).to(dev, dtype)
+
+
+def flash_case(rng, b, h, kv, s, d, dtype, dev):
+    return tuple(randn(rng, shape, dtype, dev)
+                 for shape in ((b, h, s, d), (b, kv, s, d), (b, kv, s, d)))
+
+
+def paged_case(rng, b, kv, g, pages, ps, mp, d, dtype, dev):
+    q = randn(rng, (b, kv * g, d), dtype, dev)
+    kp = randn(rng, (pages, ps, kv, d), dtype, dev)
+    vp = randn(rng, (pages, ps, kv, d), dtype, dev)
+    tables = rng.integers(0, pages, (b, mp)).astype(np.int32)
+    lens = rng.integers(1, mp * ps, (b,)).astype(np.int32)
+    return (q, kp, vp, torch.from_numpy(tables).to(dev),
+            torch.from_numpy(lens).to(dev))
+
+
+def phase_attention_kernels(dev) -> dict:
+    rng = np.random.default_rng(5)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for shape in FLASH_CASES:
+            masks = FLASH_MASKS if shape[3] < 1000 else FLASH_MASKS[:1]
+            for causal, window in masks:
+                q, k, v = flash_case(rng, *shape, dtype, dev)
+                got = flash_kernel.flash_attention_fwd(
+                    q, k, v, causal=causal, window=window)
+                want = attention_ref(q, k, v, causal=causal, window=window)
+                err, ok = within(got, want, dtype)
+                out[f"flash_{dname}_{'x'.join(map(str, shape))}"
+                    f"_causal{int(causal)}_window{window}"] = {
+                        "max_abs_err": err, "ok": ok}
+        for shape in PAGED_CASES:
+            args = paged_case(rng, *shape, dtype, dev)
+            err, ok = within(paged_kernel.paged_attention_decode(*args),
+                             paged_attention_ref(*args), dtype)
+            out[f"paged_{dname}_{'x'.join(map(str, shape))}"] = {
+                "max_abs_err": err, "ok": ok}
+    torch.cuda.synchronize()
+    for name, r in out.items():
+        check(r["ok"], f"phase 5 {name}: kernel within tolerance of plain")
+    return out
+
+
+# ----------------------------------------------------------------------
+# phases 6 and 7: the serving engine
+# ----------------------------------------------------------------------
+def reset_attention_launches() -> None:
+    paged_kernel.reset_launches()
+    flash_kernel.reset_launches()
+
+
+def attention_launches() -> dict:
+    return {**paged_kernel.launches, **flash_kernel.launches}
+
+
+def record_logits(eng: ServingEngine) -> list:
+    """Keep a CPU copy of the logits of every forward of ``eng``."""
+    log, logits = [], eng._logits
+
+    def kept(req, tokens):
+        out = logits(req, tokens)
+        log.append(out.float().cpu())
+        return out
+    eng._logits = kept
+    return log
+
+
+def phase_serving_identity(card_dev: str = "cuda") -> dict:
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), num_layers=2)
+    model = init_model(cfg, seed=0, device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(34)     # a draw whose lengths make the
+    lens = []                           # manager demote and promote
+    while len(lens) < 4:
+        n = int(rng.integers(100, 301))
+        if n % 16:
+            lens.append(n)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    runs = {}
+    for dev in (card_dev, "cpu"):
+        # the card gets a copy: ServingEngine moves its model in place
+        m = copy.deepcopy(model) if dev == card_dev else model
+        eng = ServingEngine(cfg, m, page_size=16, pages_per_zone=8,
+                            hbm_zones=4, host_zones=32, cache_zones=1,
+                            max_batch=4, torch_device=dev)
+        log = record_logits(eng)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=16))
+        reset_attention_launches()
+        t0 = time.perf_counter()
+        stats = eng.run(max_steps=200)
+        torch.cuda.synchronize()
+        runs[dev] = {
+            "stats": stats, "wall_s": time.perf_counter() - t0,
+            "tokens": [r.out_tokens
+                       for r in sorted(eng.done, key=lambda r: r.rid)],
+            "pool_bytes": [(p.bytes_written, p.bytes_read)
+                           for p in (eng.hbm, eng.host)],
+            "staged_bytes": eng.staged_bytes, "logits": log,
+            "launches": attention_launches()}
+        del eng, m
+    torch.cuda.empty_cache()
+    gpu, cpu = runs[card_dev], runs["cpu"]
+    rel = [float((g - c).abs().max() / c.abs().max())
+           for g, c in zip(gpu["logits"], cpu["logits"])]
+    out = {"layers": cfg.num_layers, "prompt_lens": lens,
+           "steps_compared": len(rel), "max_rel_logit_err": max(rel),
+           "tokens_identical": gpu["tokens"] == cpu["tokens"],
+           "stats_identical": gpu["stats"] == cpu["stats"],
+           "pool_bytes_identical": gpu["pool_bytes"] == cpu["pool_bytes"],
+           "staged_bytes": {d: r["staged_bytes"] for d, r in runs.items()},
+           "launches": {d: r["launches"] for d, r in runs.items()},
+           "wall_s": {d: r["wall_s"] for d, r in runs.items()},
+           "stats": gpu["stats"], "pool_bytes": gpu["pool_bytes"]}
+    check(out["tokens_identical"], "phase 6: card and CPU tokens identical")
+    check(out["stats_identical"], "phase 6: card and CPU stats identical")
+    check(out["pool_bytes_identical"],
+          "phase 6: card and CPU pool byte counters identical")
+    check(len(gpu["logits"]) == len(cpu["logits"]) == 4 * 16,
+          "phase 6: one logits vector per forward")
+    check(out["max_rel_logit_err"] <= 1e-4,
+          "phase 6: card logits within 1e-4 of the CPU's")
+    check(gpu["stats"]["demotions"] > 0 and gpu["stats"]["promotions"] > 0
+          and gpu["staged_bytes"] > 0
+          and gpu["staged_bytes"] == cpu["staged_bytes"],
+          "phase 6: sequences demoted, promoted and decoded from the host "
+          "tier")
+    check(gpu["launches"] == {"paged_attention": 4 * 15 * cfg.num_layers,
+                              "flash_attention": 4 * cfg.num_layers},
+          "phase 6: one kernel launch per layer of each forward on the card")
+    check(not any(cpu["launches"].values()),
+          "phase 6: the CPU run launched no kernel")
+    return out
+
+
+class AttentionRecorder:
+    """Wraps the engine's two attention entry points and keeps a copy of
+    the arguments of the calls whose index is in ``keep``.  The engine
+    reuses its pools, so a kept paged call keeps its pages gathered into
+    a compact pool of their own, with the block table 0..n-1: the kernel
+    reads the same K/V through it."""
+
+    def __init__(self, keep: dict):
+        self.keep = keep
+        self.calls = {name: [] for name in keep}
+        self.seen = {name: 0 for name in keep}
+        self._orig = (flash_ops.flash_attention, paged_ops.paged_attention)
+
+    def _kept(self, name: str) -> bool:
+        i = self.seen[name]
+        self.seen[name] += 1
+        return i in self.keep[name]
+
+    def flash(self, q, k, v, causal=True, window=None):
+        if self._kept("flash_attention"):
+            check(causal and window is None, "phase 7: causal prefill")
+            self.calls["flash_attention"].append(
+                (q.clone(), k.clone(), v.clone()))
+        return self._orig[0](q, k, v, causal, window)
+
+    def paged(self, q, k_pages, v_pages, tables, lens):
+        if self._kept("paged_attention"):
+            pages = tables[0].long()
+            self.calls["paged_attention"].append((
+                q.clone(), k_pages[pages], v_pages[pages],
+                torch.arange(len(pages), dtype=torch.int32,
+                             device=tables.device)[None], lens.clone()))
+        return self._orig[1](q, k_pages, v_pages, tables, lens)
+
+    def __enter__(self):
+        flash_ops.flash_attention, paged_ops.paged_attention = \
+            self.flash, self.paged
+        return self
+
+    def __exit__(self, *exc):
+        flash_ops.flash_attention, paged_ops.paged_attention = self._orig
+
+
+def phase_serving_main(dev: str = "cuda",
+                       n_requests: int = SERVE_REQUESTS):
+    cfg = get_config("qwen3-1.7b")
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, device=dev)
+    eng = ServingEngine(cfg, model, page_size=16, pages_per_zone=8,
+                        hbm_zones=64, host_zones=192, cache_zones=2,
+                        max_batch=12, torch_device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    lens = rng.integers(512, 1537, n_requests)
+    for i, n in enumerate(lens):
+        eng.submit(Request(
+            rid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+            max_new_tokens=SERVE_NEW_TOKENS))
+    n_decode = n_requests * (SERVE_NEW_TOKENS - 1)
+    expected = {"flash_attention": n_requests * cfg.num_layers,
+                "paged_attention": n_decode * cfg.num_layers}
+    pick = np.random.default_rng(7)
+    keep = {"flash_attention": set(pick.choice(
+                expected["flash_attention"], 8, replace=False).tolist()),
+            "paged_attention": set(pick.choice(
+                expected["paged_attention"], 24, replace=False).tolist())}
+    # wall time of prefills and decodes (each forward ends in a sync: the
+    # argmax goes to the host) and of the host tier's staging copies (a
+    # copy from pageable memory returns when it is done), and a count of
+    # non-finite logits kept on the card
+    wall = {"prefill": 0.0, "decode": 0.0, "stage": 0.0}
+    forward, logits, stage = eng._forward_tokens, eng._logits, eng._stage
+    nonfinite = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def timed(req, tokens):
+        t = time.perf_counter()
+        nxt = forward(req, tokens)
+        wall["decode" if req.out_tokens else "prefill"] += \
+            time.perf_counter() - t
+        return nxt
+
+    def checked(req, tokens):
+        out = logits(req, tokens)
+        nonfinite.add_((~torch.isfinite(out)).sum())
+        return out
+
+    def staged(host_layer, pages):
+        t = time.perf_counter()
+        out = stage(host_layer, pages)
+        wall["stage"] += time.perf_counter() - t
+        return out
+    eng._forward_tokens, eng._logits, eng._stage = timed, checked, staged
+    torch.cuda.reset_peak_memory_stats()
+    with AttentionRecorder(keep) as rec:
+        kernel.reset_launches()
+        reset_attention_launches()
+        t0 = time.perf_counter()
+        stats = eng.run(max_steps=1000)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launched = {**attention_launches(), **kernel.launches}
+    out = {
+        "model": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "params": sum(p.numel() for p in model.parameters()),
+        "requests": n_requests, "cut": SERVE_REQUESTS - n_requests,
+        "prompt_tokens": int(lens.sum()), "mean_prompt": float(lens.mean()),
+        "new_tokens_each": SERVE_NEW_TOKENS, "decode_tokens": n_decode,
+        "load_s": load_s, "run_s": run_s, "prefill_s": wall["prefill"],
+        "decode_s": wall["decode"], "stage_s": wall["stage"],
+        "prefill_tokens_per_s": int(lens.sum()) / wall["prefill"],
+        "decode_tokens_per_s": n_decode / wall["decode"],
+        "staged_bytes": eng.staged_bytes,
+        "pool_bytes": {p.name: {"written": p.bytes_written,
+                                "read": p.bytes_read}
+                       for p in (eng.hbm, eng.host)},
+        "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": launched, "expected_launches": expected,
+        "nonfinite_logits": int(nonfinite), "stats": stats}
+    check(stats["done"] == n_requests and all(
+        len(r.out_tokens) == SERVE_NEW_TOKENS for r in eng.done),
+        "phase 7: every request done with all its tokens")
+    check(stats["demotions"] + stats["host_placements"] > 0,
+          "phase 7: tier migrations fired")
+    check(launched["flash_attention"] == expected["flash_attention"],
+          "phase 7: one flash launch per layer of each prefill")
+    check(launched["paged_attention"] == expected["paged_attention"],
+          "phase 7: one paged launch per layer of each decode step")
+    check(launched["bloom_probe"] == launched["bloom_probe_pairs"] == 0,
+          "phase 7: no Bloom launch on the serving path")
+    check(out["nonfinite_logits"] == 0, "phase 7: every logit is finite")
+    del eng, model
+    torch.cuda.empty_cache()
+    return out, rec
+
+
+# ----------------------------------------------------------------------
+# phase 8: the captured attention calls, again and timed
+# ----------------------------------------------------------------------
+def flash_causal(q, k, v):
+    return flash_kernel.flash_attention_fwd(q, k, v, causal=True)
+
+
+def flash_causal_ref(q, k, v):
+    return attention_ref(q, k, v, causal=True)
+
+
+# name: (kernel wrapper, plain version, kernel symbol, wrapper module)
+ATTENTION = {"paged_attention": (paged_kernel.paged_attention_decode,
+                                 paged_attention_ref, "paged_decode_kernel",
+                                 paged_kernel),
+             "flash_attention": (flash_causal, flash_causal_ref,
+                                 "flash_fwd_kernel", flash_kernel)}
+
+
+def sdpa_gqa() -> bool:
+    """Whether this PyTorch's scaled_dot_product_attention takes
+    ``enable_gqa``; without it the library call gets K/V repeated to the
+    query heads (outside the timed call)."""
+    x = torch.zeros(1, 2, 1, 8, device="cuda")
+    try:
+        F.scaled_dot_product_attention(x, x[:, :1], x[:, :1],
+                                       enable_gqa=True)
+        return True
+    except TypeError:
+        return False
+
+
+def library_call(name: str, call, gqa: bool):
+    """(fn, args) of the one PyTorch call that computes the same function:
+    scaled_dot_product_attention, over the gathered K/V for paged."""
+    if name == "flash_attention":
+        q, k, v = call
+        causal = True
+    else:
+        q, kp, vp, _, lens = call
+        n = int(lens[0]) + 1
+        kvh, d = kp.shape[2], kp.shape[3]
+        k, v = (p.reshape(-1, kvh, d)[:n].transpose(0, 1)[None].contiguous()
+                for p in (kp, vp))
+        q = q[:, :, None, :]
+        causal = False
+    if not gqa:
+        g = q.shape[1] // k.shape[1]
+        k, v = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+    kw = {"enable_gqa": True} if gqa else {}
+    return (lambda q_, k_, v_: F.scaled_dot_product_attention(
+        q_, k_, v_, is_causal=causal, **kw)), (q, k, v)
+
+
+def attention_bound(name: str, call) -> tuple:
+    """(bytes / HBM rate, fp32 ops / CUDA-core rate) in seconds: inputs
+    read once (for paged only the context's K/V rows), the output written
+    once; 4 flops per (query head, visible key, head dim): 2 for q.k and
+    2 for p.v."""
+    if name == "paged_attention":
+        q, kp, _, _, lens = call
+        n = int(lens[0]) + 1
+        kvh, d = kp.shape[2], kp.shape[3]
+        nbytes = (2 * n * kvh * d + 2 * q.numel()) * kp.element_size()
+        ops = 4 * q.shape[1] * d * n
+    else:
+        q, k, _ = call
+        b, h, s, d = q.shape
+        nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+        ops = 4 * b * h * d * (s * (s + 1) // 2)
+    return nbytes / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS_PER_S
+
+
+def phase_attention_captured(rec: AttentionRecorder, launched: dict) -> list:
+    gqa = sdpa_gqa()
+    dev_ms = device_ms_each({symbol: (fn_k, rec.calls[name])
+                            for name, (fn_k, _, symbol, _) in
+                            ATTENTION.items()})
+    kernels = []
+    for name, (fn_k, fn_p, symbol, module) in ATTENTION.items():
+        calls = rec.calls[name]
+        check(len(calls) == len(rec.keep[name]),
+              f"phase 8: every kept {name} call captured")
+        worst, ok = 0.0, True
+        for c in calls:
+            err, good = within(fn_k(*c), fn_p(*c), torch.float32)
+            worst, ok = max(worst, err), ok and good
+        check(ok, f"phase 8: {name} kernel within 2e-5 of plain on the "
+              "captured calls")
+        lib = [library_call(name, c, gqa) for c in calls]
+        lib_fn, lib_args = lib[0][0], [a for _, a in lib]
+        t_bytes, t_ops = zip(*(attention_bound(name, c) for c in calls))
+        if name == "paged_attention":
+            sizes = [int(c[4][0]) + 1 for c in calls]
+        else:
+            sizes = [c[0].shape[2] for c in calls]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": str(module.SOURCE.relative_to(ROOT)),
+            "replaces": REPLACES[name], "launches": launched[name],
+            "max_abs_err": worst, "dtype": "float32",
+            "ms": cuda_ms(fn_k, calls, 20),
+            "plain_ms": cuda_ms(fn_p, calls, 3),
+            "bound_ms": 1e3 * float(np.mean(np.maximum(t_bytes, t_ops))),
+            "bound_by": ("bytes" if np.mean(t_bytes) >= np.mean(t_ops)
+                         else "operations"),
+            "library_ms": cuda_ms(lib_fn, lib_args, 20),
+            "library": "scaled_dot_product_attention" + (
+                "(enable_gqa)" if gqa else " (K/V repeated to H heads)"),
+            "device_ms": dev_ms[symbol],
+            "timed_calls": len(calls),
+            ("mean_context" if name == "paged_attention"
+             else "mean_prompt"): float(np.mean(sizes))})
+    return kernels
+
+
+def timings(card: str, kernels: list) -> dict:
+    return {"card": card, "kernels": [
+        {k: v for k, v in d.items() if k in (
+            "name", "ms", "plain_ms", "device_ms", "bound_ms", "library_ms",
+            "timed_calls", "mean_items_per_call", "mean_context",
+            "mean_prompt")}
+        for d in kernels]}
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+                    help="comma-separated phases to run (4 needs 3, 8 "
+                         "needs 7); the result lines print only when all "
+                         "eight run")
+    phases = {int(p) for p in ap.parse_args().phases.split(",")}
+    if (4 in phases and 3 not in phases) or (8 in phases and 7 not in phases):
+        ap.error("phase 4 needs phase 3 and phase 8 needs phase 7")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible (torch.cuda.is_available() "
               "is False)", file=sys.stderr)
         return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(card, flush=True)
     t0 = time.perf_counter()
-    lib = kernel.build(force=True)
-    kernel.load()
-    emit(build={"library": str(lib.relative_to(ROOT)),
+    libs = _build.build_all([kernel.SOURCE, paged_kernel.SOURCE,
+                             flash_kernel.SOURCE], force=True)
+    for mod in (kernel, paged_kernel, flash_kernel):
+        mod.load()
+    emit(build={"libraries": [str(lib.relative_to(ROOT)) for lib in libs],
                 "seconds": time.perf_counter() - t0})
-    emit(phase1=phase_kernels(torch.device("cuda")), card=card)
+    dev = torch.device("cuda")
+    kernels = []
+    if 1 in phases:
+        emit(phase1=phase_kernels(dev), card=card)
     paper_keys = ScenarioConfig().paper_keys
-    emit(phase2=phase_identity(paper_keys // 16), card=card)
-    main_out, row, rec, pk_rec = phase_main(paper_keys)
-    emit(phase3=main_out, card=card)
-    emit(phase3_row=row)
-    kernels = phase_captured(rec, pk_rec, main_out["main_path"]["launches"],
-                             main_out["perkey_path"]["launches"])
-    emit(phase4={"card": card, "kernels": [
-        {k: v for k, v in d.items() if k in ("name", "ms", "plain_ms",
-                                             "device_ms", "bound_ms",
-                                             "timed_calls",
-                                             "mean_items_per_call")}
-        for d in kernels]})
+    if 2 in phases:
+        emit(phase2=phase_identity(paper_keys // 16), card=card)
+    if 3 in phases:
+        main_out, row, rec, pk_rec = phase_main(paper_keys)
+        emit(phase3=main_out, card=card)
+        emit(phase3_row=row)
+    if 4 in phases:
+        kernels += phase_captured(rec, pk_rec,
+                                  main_out["main_path"]["launches"],
+                                  main_out["perkey_path"]["launches"])
+        emit(phase4=timings(card, kernels))
+    if 5 in phases:
+        emit(phase5=phase_attention_kernels(dev), card=card)
+    if 6 in phases:
+        emit(phase6=phase_serving_identity(), card=card)
+    if 7 in phases:
+        serve_out, serve_rec = phase_serving_main()
+        emit(phase7=serve_out, card=card)
+    if 8 in phases:
+        attention = phase_attention_captured(serve_rec,
+                                             serve_out["launches"])
+        emit(phase8=timings(card, attention))
+        kernels += attention
+    if phases != set(range(1, 9)):
+        return 0
     emit(kernels=kernels)
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),

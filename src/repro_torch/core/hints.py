@@ -3,9 +3,8 @@
 Each hint is tens of bytes in the real system; here they are small dataclasses
 flowing synchronously alongside the corresponding operation.  The same hint
 vocabulary is reused by the KV-cache tier manager of the serving layer
-(``serving/tiering.py``, not ported yet): prefill ≙ flush, sequence growth
-across length buckets ≙ compaction, HBM block-pool eviction ≙ cache
-eviction.
+(``serving/tiering.py``): prefill ≙ flush, sequence growth across length
+buckets ≙ compaction, HBM block-pool eviction ≙ cache eviction.
 """
 from __future__ import annotations
 

@@ -1,10 +1,7 @@
 """Build and launch the CUDA Bloom-probe kernels (``csrc/bloom_probe.cu``).
 
-The source is compiled at first use with ``nvcc`` alone into a shared
-library with a plain C interface, ``build/repro_torch/`` under the
-checkout, and bound with ``ctypes``: no ninja and no PyTorch headers are
-needed.  The library's name carries a hash of the source, so an edited
-source is rebuilt and a built one is reused across processes.
+The source is compiled at first use with nvcc into a shared library and
+bound with ctypes (``kernels/_build.py``).
 
 Both wrappers take CUDA tensors only, check device, dtype, contiguity and
 shapes, allocate the int32 output with ``torch.empty``, launch on the
@@ -14,22 +11,22 @@ refused.  ``launches`` counts the kernel launches of each wrapper.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Dict, Optional
 
 import torch
 
+from .. import _build
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "bloom_probe.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+_VP, _LL = ctypes.c_void_p, ctypes.c_longlong
+SIGNATURES = {
+    "bloom_probe": [_VP, _VP, _VP, _LL, _LL, ctypes.c_int, _VP, _VP],
+    "bloom_probe_pairs": [_VP, _VP, _VP, _VP, _VP, _LL, ctypes.c_int,
+                          _VP, _VP],
+}
 
 launches: Dict[str, int] = {"bloom_probe": 0, "bloom_probe_pairs": 0}
-_lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
@@ -37,49 +34,9 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(home) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; "
-                           "the Bloom-probe kernel cannot be built")
-    return str(path)
-
-
-def build(force: bool = False) -> Path:
-    """Compile the kernel source into ``BUILD_DIR`` (skipped when a library
-    built from the same source exists, unless ``force``).  Returns its path."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libbloom_probe-{digest}.so"
-    if lib.exists() and not force:
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
-
-
 def load() -> ctypes.CDLL:
     """Build if needed, then load the library and declare its signatures."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        lib.bloom_probe.argtypes = [vp, vp, vp, ll, ll, ctypes.c_int, vp, vp]
-        lib.bloom_probe.restype = ctypes.c_int
-        lib.bloom_probe_pairs.argtypes = [vp, vp, vp, vp, vp, ll,
-                                          ctypes.c_int, vp, vp]
-        lib.bloom_probe_pairs.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    return _build.load(SOURCE, SIGNATURES)
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
@@ -92,11 +49,6 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name} must be a contiguous 1-D tensor")
     if n is not None and t.shape[0] != n:
         raise ValueError(f"{name} has {t.shape[0]} entries, expected {n}")
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed with cudaError {err}")
 
 
 def bloom_probe(lo: torch.Tensor, hi: torch.Tensor, bits: torch.Tensor,
@@ -124,7 +76,7 @@ def bloom_probe(lo: torch.Tensor, hi: torch.Tensor, bits: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.bloom_probe(lo.data_ptr(), hi.data_ptr(), bits.data_ptr(),
                               w, n, k_hashes, out.data_ptr(), stream)
-    _raise_on(err, "bloom_probe")
+    _build.raise_on(err, "bloom_probe")
     launches["bloom_probe"] += 1
     return out
 
@@ -159,6 +111,6 @@ def bloom_probe_pairs(lo: torch.Tensor, hi: torch.Tensor,
                                     word_off.data_ptr(), num_words.data_ptr(),
                                     bits_concat.data_ptr(), n, k_hashes,
                                     out.data_ptr(), stream)
-    _raise_on(err, "bloom_probe_pairs")
+    _build.raise_on(err, "bloom_probe_pairs")
     launches["bloom_probe_pairs"] += 1
     return out

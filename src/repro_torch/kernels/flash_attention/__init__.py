@@ -1,0 +1,2 @@
+"""Flash attention forward: CUDA kernel, plain PyTorch version, entry
+point."""

@@ -1,0 +1,96 @@
+"""Build and launch the CUDA paged decode attention kernel
+(``csrc/paged_attention.cu``).
+
+The source is compiled at first use with nvcc into a shared library and
+bound with ctypes (``kernels/_build.py``).  The wrapper takes CUDA tensors
+only, checks device, dtype, contiguity and shapes, allocates the output
+with ``torch.empty``, launches on the current stream without
+synchronising, and raises if the launch was refused.  ``launches`` counts
+its kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+from .. import _build
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {"paged_attention_decode": [_VP] * 6 + [_I] * 7 + [_VP]}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_GROUP = 16          # query heads per KV head the kernel holds
+MAX_HEAD_DIM = 256
+
+launches: Dict[str, int] = {"paged_attention": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def load() -> ctypes.CDLL:
+    """Build if needed, then load the library and declare its signature."""
+    return _build.load(SOURCE, SIGNATURES)
+
+
+def paged_attention_decode(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_tables: torch.Tensor,
+                           context_lens: torch.Tensor) -> torch.Tensor:
+    """One-token decode over paged KV on the card.
+
+    q: [B, H, D]; k_pages/v_pages: [P, page_size, KV, D] (fp32 or bf16,
+    all three alike); block_tables: int32 [B, max_pages], every entry a
+    page in [0, P) (pad with 0); context_lens: int32 [B], the index of the
+    newest valid token, >= 0.  Returns [B, H, D] in q's dtype."""
+    dev = k_pages.device
+    if dev.type != "cuda":
+        raise ValueError("paged_attention_decode launches a CUDA kernel; "
+                         f"got tensors on {dev}")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                    ("block_tables", block_tables),
+                    ("context_lens", context_lens)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in DTYPES or k_pages.dtype != q.dtype \
+            or v_pages.dtype != q.dtype:
+        raise TypeError("q, k_pages and v_pages must share one dtype of "
+                        f"{list(DTYPES)}; got {q.dtype}, {k_pages.dtype}, "
+                        f"{v_pages.dtype}")
+    if block_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
+        raise TypeError("block_tables and context_lens must be int32")
+    if q.dim() != 3 or k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)}, pages "
+                         f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
+    bsz, h, d = q.shape
+    _, page_size, kvh, dk = k_pages.shape
+    if dk != d or h % kvh or not 1 <= h // kvh <= MAX_GROUP \
+            or not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"q heads {h} x {d} against {kvh} KV heads x {dk}: "
+                         f"needs H % KV == 0, H / KV <= {MAX_GROUP}, "
+                         f"D <= {MAX_HEAD_DIM}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != bsz \
+            or block_tables.shape[1] < 1 or context_lens.shape != (bsz,):
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} and "
+                         f"context_lens {tuple(context_lens.shape)} for "
+                         f"batch {bsz}")
+    out = torch.empty_like(q)
+    if bsz == 0:
+        return out
+    lib = load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.paged_attention_decode(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
+            DTYPES[q.dtype], bsz, h, kvh, d, page_size,
+            block_tables.shape[1], stream)
+    _build.raise_on(err, "paged_attention_decode")
+    launches["paged_attention"] += 1
+    return out

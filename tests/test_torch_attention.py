@@ -1,0 +1,203 @@
+"""The port's attention held against the JAX package.
+
+The same seeded numpy inputs go through ``repro`` (the jnp oracles and the
+Pallas kernels in interpret mode) and ``repro_torch`` (the plain PyTorch
+versions and the ``ops`` entry points, which take the plain versions for
+CPU tensors).  Tolerances are those of ``tests/test_kernels.py``: fp32
+2e-5 (the two frameworks sum in another order), bf16 2e-2 (one bf16
+rounding of the output).  bf16 inputs are rounded once, by JAX, and the
+same values go to both packages.
+
+The CUDA kernels run only on the card: the ``gpu`` tests decide inside
+their fixture whether a card and ``nvcc`` are present, and skip here.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention.flash_attention import (  # noqa: E402
+    flash_attention_fwd as pallas_flash)
+from repro.kernels.flash_attention.ref import (  # noqa: E402
+    attention_ref as jax_attention_ref)
+from repro.kernels.paged_attention.paged_attention import (  # noqa: E402
+    paged_attention_decode as pallas_paged)
+from repro.kernels.paged_attention.ref import (  # noqa: E402
+    paged_attention_ref as jax_paged_ref)
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention as flash_kernel)
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.paged_attention import (  # noqa: E402
+    paged_attention as paged_kernel)
+from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
+from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
+    paged_attention_ref)
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+# the sweeps of tests/test_kernels.py
+FLASH_SHAPES = [(1, 4, 4, 256, 64), (2, 8, 2, 512, 64), (1, 8, 1, 256, 128)]
+MASKS = [(True, None), (False, None), (True, 64)]
+PAGED_SHAPES = [(2, 4, 2, 16, 16, 4, 64), (3, 2, 4, 32, 8, 8, 128),
+                (1, 1, 8, 8, 16, 2, 64)]
+
+
+def _tol(dtype: str):
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" \
+        else dict(rtol=2e-5, atol=2e-5)
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """One array in both packages, rounded once (by JAX) to ``dtype``."""
+    jd, td = DTYPES[dtype]
+    j = jnp.asarray(a, jd)
+    return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(td)
+
+
+def _f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().cpu().numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+def _flash_inputs(seed, b, h, kv, s, d, dtype):
+    rng = np.random.default_rng(seed)
+    return [_pair(rng.standard_normal(shape).astype(np.float32), dtype)
+            for shape in ((b, h, s, d), (b, kv, s, d), (b, kv, s, d))]
+
+
+def _paged_inputs(seed, b, kv, g, pages, ps, mp, d, dtype):
+    rng = np.random.default_rng(seed)
+    h = kv * g
+    q, kp, vp = [_pair(rng.standard_normal(shape).astype(np.float32), dtype)
+                 for shape in ((b, h, d), (pages, ps, kv, d),
+                               (pages, ps, kv, d))]
+    tables = rng.integers(0, pages, (b, mp)).astype(np.int32)
+    lens = rng.integers(1, mp * ps, (b,)).astype(np.int32)
+    return q, kp, vp, tables, lens
+
+
+# ----------------------------------------------------------------------
+# plain versions against the jnp oracles
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("b,h,kv,s,d", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_attention_ref_matches_reference(b, h, kv, s, d, dtype, causal,
+                                         window):
+    (jq, tq), (jk, tk), (jv, tv) = _flash_inputs(0, b, h, kv, s, d, dtype)
+    want = jax_attention_ref(jq, jk, jv, causal=causal, window=window)
+    got = flash_ops.flash_attention(tq, tk, tv, causal, window)
+    assert got.dtype == DTYPES[dtype][1]
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
+
+
+@pytest.mark.parametrize("s", [37, 300])
+def test_attention_ref_ragged_matches_reference(s):
+    """Prompt lengths the Pallas kernel's block assert refuses (causal,
+    GQA 2:1, D 128)."""
+    (jq, tq), (jk, tk), (jv, tv) = _flash_inputs(1, 1, 4, 2, s, 128,
+                                                 "float32")
+    want = jax_attention_ref(jq, jk, jv, causal=True)
+    got = attention_ref(tq, tk, tv, causal=True)
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol("float32"))
+
+
+@pytest.mark.parametrize("b,kv,g,pages,ps,mp,d", PAGED_SHAPES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_paged_attention_ref_matches_reference(b, kv, g, pages, ps, mp, d,
+                                               dtype):
+    (jq, tq), (jk, tk), (jv, tv), tables, lens = _paged_inputs(
+        2, b, kv, g, pages, ps, mp, d, dtype)
+    want = jax_paged_ref(jq, jk, jv, jnp.asarray(tables), jnp.asarray(lens))
+    got = paged_ops.paged_attention(tq, tk, tv, torch.from_numpy(tables),
+                                    torch.from_numpy(lens))
+    assert got.dtype == DTYPES[dtype][1]
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
+
+
+# ----------------------------------------------------------------------
+# plain versions against the Pallas kernels (interpret mode)
+# ----------------------------------------------------------------------
+def test_attention_ref_matches_pallas_kernel():
+    (jq, tq), (jk, tk), (jv, tv) = _flash_inputs(3, 1, 4, 2, 128, 64,
+                                                 "float32")
+    want = pallas_flash(jq, jk, jv, causal=True, interpret=True)
+    got = attention_ref(tq, tk, tv, causal=True)
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol("float32"))
+
+
+def test_paged_attention_ref_matches_pallas_kernel():
+    (jq, tq), (jk, tk), (jv, tv), tables, lens = _paged_inputs(
+        4, 2, 4, 2, 16, 16, 4, 64, "float32")
+    want = pallas_paged(jq, jk, jv, jnp.asarray(tables), jnp.asarray(lens),
+                        interpret=True)
+    got = paged_attention_ref(tq, tk, tv, torch.from_numpy(tables),
+                              torch.from_numpy(lens))
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol("float32"))
+
+
+# ----------------------------------------------------------------------
+# the CUDA wrappers take CUDA tensors only
+# ----------------------------------------------------------------------
+def test_kernel_wrappers_refuse_cpu_tensors():
+    (_, tq), (_, tk), (_, tv) = _flash_inputs(6, 1, 2, 1, 8, 16, "float32")
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        flash_kernel.flash_attention_fwd(tq, tk, tv)
+    (_, q), (_, kp), (_, vp), tables, lens = _paged_inputs(
+        6, 1, 1, 2, 4, 4, 2, 16, "float32")
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        paged_kernel.paged_attention_decode(
+            q, kp, vp, torch.from_numpy(tables), torch.from_numpy(lens))
+
+
+# ----------------------------------------------------------------------
+# on the card: each kernel against its plain version
+# ----------------------------------------------------------------------
+@pytest.fixture
+def card():
+    """The CUDA device with both kernels built, or a skip with the
+    reason."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    try:
+        _build.nvcc_path()
+    except RuntimeError as err:
+        pytest.skip(str(err))
+    flash_kernel.load()
+    paged_kernel.load()
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kv,s,d", FLASH_SHAPES + [(1, 16, 8, 1000, 128),
+                                                       (1, 16, 8, 1531, 128)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_kernel_matches_plain(card, b, h, kv, s, d, dtype, causal,
+                                    window):
+    args = [t.to(card) for _, t in _flash_inputs(7, b, h, kv, s, d, dtype)]
+    got = flash_kernel.flash_attention_fwd(*args, causal=causal,
+                                           window=window)
+    want = attention_ref(*args, causal=causal, window=window)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,kv,g,pages,ps,mp,d",
+                         PAGED_SHAPES + [(1, 8, 2, 512, 16, 80, 128)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_paged_kernel_matches_plain(card, b, kv, g, pages, ps, mp, d, dtype):
+    (_, q), (_, kp), (_, vp), tables, lens = _paged_inputs(
+        8, b, kv, g, pages, ps, mp, d, dtype)
+    args = [q.to(card), kp.to(card), vp.to(card),
+            torch.from_numpy(tables).to(card), torch.from_numpy(lens).to(card)]
+    got = paged_kernel.paged_attention_decode(*args)
+    want = paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))

@@ -22,6 +22,7 @@ from repro.kernels.bloom_probe.ref import (  # noqa: E402
     bloom_probe_pairs_ref as jax_pairs_ref, bloom_probe_ref as jax_probe_ref,
     build_filter as jax_build_filter)
 from repro.lsm import filters as ref_filters  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.bloom_probe import bloom_probe as kernel  # noqa: E402
 from repro_torch.kernels.bloom_probe import ops, ref  # noqa: E402
 from repro_torch.lsm import filters  # noqa: E402
@@ -235,7 +236,7 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     try:
-        kernel._nvcc()
+        _build.nvcc_path()
     except RuntimeError as err:
         pytest.skip(str(err))
     kernel.load()

@@ -31,6 +31,7 @@ from repro.zoned import faults as ref_faults  # noqa: E402
 from repro.zoned import sim as ref_sim  # noqa: E402
 import repro_torch.lsm as pt_lsm  # noqa: E402
 from repro_torch import workloads as pt_wl  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.bloom_probe import bloom_probe as kernel  # noqa: E402
 from repro_torch.lsm import filters  # noqa: E402
 from repro_torch.zoned import device as pt_device  # noqa: E402
@@ -381,7 +382,8 @@ def test_port_imports_neither_jax_nor_repro():
         for name in _imports(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), (path, name)
-    code = ("import sys, repro_torch.workloads, repro_torch.lsm; "
+    code = ("import sys, repro_torch.workloads, repro_torch.lsm, "
+            "repro_torch.serving, repro_torch.models, repro_torch.configs; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -398,7 +400,7 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     try:
-        kernel._nvcc()
+        _build.nvcc_path()
     except RuntimeError as err:
         pytest.skip(str(err))
     return "cuda"
