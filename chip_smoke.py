@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch`` (Bloom probe, paged
-decode attention, flash attention forward), one nvcc per source, all
-started together, into ``build/repro_torch/``, then:
+decode attention, flash attention forward, the two selective scans), one
+nvcc per source, all started together, into ``build/repro_torch/``, then:
 
 1. kernels vs plain: both CUDA launchers against their plain PyTorch
    versions on the card, bit for bit, on adversarial keys (0, 2**64-1,
@@ -51,14 +51,48 @@ started together, into ``build/repro_torch/``, then:
 8. attention kernels at the serving path's shapes: calls captured in
    phase 7 again through kernel, plain version and
    ``scaled_dot_product_attention`` (the library's time, never used by the
-   port), compared and timed beside the least time the card could take.
+   port), compared and timed beside the least time the card could take;
+9. scan kernels vs plain: selective scan v1 and the fused scan against
+   their plain PyTorch versions on the card at the sweep shapes of
+   ``tests/test_kernels.py`` and at T in {1, 1000, 2048} x di in {3200,
+   8192}, N 16, within 1e-4; the fused kernel also against v1 given bx
+   formed outside;
+10. model identity: Falcon-Mamba-7B at full width cut to 2 layers and
+   Hymba-1.5B cut to 3 (``layer_windows`` takes the full-attention layers
+   modulo depth: at 2 every Hymba layer is full), fp32 weights, TF32 off.
+   ``make_prefill_step`` on the card and on the CPU (Hymba's prompts past
+   its 1,024-token window): next-token logits within 1e-4 relative to the
+   largest; ``make_serve_step`` teacher-forcing a short prompt, then
+   greedy: identical tokens.  On the card, the prefill's logits at every
+   position of the served sequence against the decode's within the
+   reference's 3e-2 (Hymba inside its window: its decode sees the whole
+   context, as the reference's does); one scan (and flash) launch per
+   layer of each prefill on the card, none on the CPU;
+11. the serving path at full size: Falcon-Mamba-7B (64 layers) and
+   Hymba-1.5B (32 layers), bf16 random weights (seed 0) made on the card,
+   ``make_prefill_step`` on 4 prompts of 2,048 tokens, then
+   ``make_serve_step`` on 4 sequences (64 prompt tokens teacher-forced, 64
+   generated), counts zeroed before and read after each: one fused-scan
+   launch per layer of the prefill, one flash launch per Hymba layer with
+   its window exactly where ``layer_windows`` gives one, no kernel in
+   decode; finite logits.  After phase 12, each model is made again and
+   one prefill and 16 decode steps run under the profiler: the device's
+   busy share of phase 11's wall time (``phase11_busy``);
+12. the scans at the path's shapes: fused-scan calls captured uniformly in
+   phase 11 again through the kernel and its plain version, and through
+   v1 with bx formed outside (not timed), compared and timed beside the
+   least time the card could take (no PyTorch call computes the scan);
+   likewise Hymba's flash calls captured in phase 11 (windowed and full
+   layers, bf16) against the plain version within 2e-2, timed beside
+   their bound and ``scaled_dot_product_attention``: the ``by_model``
+   entries of the flash row.
 
 TF32 is off for matmuls and cuDNN (the defaults for matmuls), so fp32
 products on the card are full fp32.  Each phase prints one JSON line; the
 card's name and power limit come from nvidia-smi.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
 code is non-zero and no result prints.  Exits non-zero at once when no
-CUDA card is visible.  ``--phases 5,6`` runs only the phases named (for a
+CUDA card is visible.  ``--phases 9,10`` runs only the phases named (for a
 short first call after a kernel edit); it prints no ``kernels`` or ``ok``
 line.
 """
@@ -94,14 +128,24 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     paged_attention_ref)
+from repro_torch.kernels.selective_scan import (  # noqa: E402
+    fused as fused_kernel)
+from repro_torch.kernels.selective_scan import ops as scan_ops  # noqa: E402
+from repro_torch.kernels.selective_scan import (  # noqa: E402
+    selective_scan as scan_kernel)
+from repro_torch.kernels.selective_scan.ref import (  # noqa: E402
+    selective_scan_fused_ref, selective_scan_ref)
 from repro_torch.lsm import DB, ScenarioConfig, filters  # noqa: E402
-from repro_torch.models import init_model  # noqa: E402
+from repro_torch.models import (forward, init_caches,  # noqa: E402
+                                init_model, layer_windows, make_prefill_step,
+                                make_serve_step)
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.workloads import (YCSB, PoissonArrivals,  # noqa: E402
                                    run_load, run_open_loop, run_workload)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (guide's table)
 CUDA_CORE_OPS_PER_S = 67e12   # H100 SXM non-tensor-core fp32 rate
+BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core rate
 OPS_PER_PROBE = 8             # mul, add, mod, shift, add, shift, and, test
 MAIN_READS = 100_000
 FIRST = 16                    # a path's first probe calls, checked
@@ -114,11 +158,15 @@ REPLACES = {
         "src/repro/kernels/paged_attention/paged_attention.py:29",
     "flash_attention":
         "src/repro/kernels/flash_attention/flash_attention.py:29",
+    "selective_scan":
+        "src/repro/kernels/selective_scan/selective_scan.py:25",
+    "selective_scan_fused": "src/repro/kernels/selective_scan/fused.py:25",
 }
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
 # phase 7: the serving path at full size
 SERVE_REQUESTS = 24
 SERVE_NEW_TOKENS = 64
+ALL_PHASES = tuple(range(1, 13))
 
 
 def emit(**obj) -> None:
@@ -567,11 +615,10 @@ PAGED_CASES = [(2, 4, 2, 16, 16, 4, 64), (3, 2, 4, 32, 8, 8, 128),
                (1, 1, 8, 8, 16, 2, 64), (1, 8, 2, 512, 16, 96, 128)]
 
 
-def within(got: torch.Tensor, want: torch.Tensor, dtype) -> tuple:
+def within(got: torch.Tensor, want: torch.Tensor, tol: float) -> tuple:
     """(max abs error, |got - want| <= tol + tol * |want| everywhere)."""
     g, w = got.float(), want.float()
     err = (g - w).abs()
-    tol = TOL[dtype]
     return float(err.max()), bool((err <= tol + tol * w.abs()).all())
 
 
@@ -607,14 +654,14 @@ def phase_attention_kernels(dev) -> dict:
                 got = flash_kernel.flash_attention_fwd(
                     q, k, v, causal=causal, window=window)
                 want = attention_ref(q, k, v, causal=causal, window=window)
-                err, ok = within(got, want, dtype)
+                err, ok = within(got, want, TOL[dtype])
                 out[f"flash_{dname}_{'x'.join(map(str, shape))}"
                     f"_causal{int(causal)}_window{window}"] = {
                         "max_abs_err": err, "ok": ok}
         for shape in PAGED_CASES:
             args = paged_case(rng, *shape, dtype, dev)
             err, ok = within(paged_kernel.paged_attention_decode(*args),
-                             paged_attention_ref(*args), dtype)
+                             paged_attention_ref(*args), TOL[dtype])
             out[f"paged_{dname}_{'x'.join(map(str, shape))}"] = {
                 "max_abs_err": err, "ok": ok}
     torch.cuda.synchronize()
@@ -936,7 +983,7 @@ def phase_attention_captured(rec: AttentionRecorder, launched: dict) -> list:
               f"phase 8: every kept {name} call captured")
         worst, ok = 0.0, True
         for c in calls:
-            err, good = within(fn_k(*c), fn_p(*c), torch.float32)
+            err, good = within(fn_k(*c), fn_p(*c), TOL[torch.float32])
             worst, ok = max(worst, err), ok and good
         check(ok, f"phase 8: {name} kernel within 2e-5 of plain on the "
               "captured calls")
@@ -967,24 +1014,621 @@ def phase_attention_captured(rec: AttentionRecorder, launched: dict) -> list:
     return kernels
 
 
+# ----------------------------------------------------------------------
+# phase 9: the selective scan kernels vs plain on seeded inputs
+# ----------------------------------------------------------------------
+# the sweep of tests/test_kernels.py, then the models' widths (Hymba-1.5B
+# di 3,200, Falcon-Mamba-7B 8,192) at ragged and full prompt lengths
+SCAN_CASES = ([(1, 64, 256, 8), (2, 128, 512, 16), (1, 256, 256, 4)]
+              + [(2, t, di, 16) for t in (1, 1000, 2048)
+                 for di in (3200, 8192)])
+SCAN_TOL = 1e-4                       # tests/test_kernels.py
+
+
+def fused_case(rng, b, t, di, n, dev) -> tuple:
+    """(dt, x, B, C, A) as a Mamba layer feeds the fused scan: dt > 0,
+    A < 0, fp32."""
+    return (torch.from_numpy(np.abs(rng.standard_normal((b, t, di)))
+                             .astype(np.float32) * 0.1).to(dev),
+            randn(rng, (b, t, di), torch.float32, dev),
+            randn(rng, (b, t, n), torch.float32, dev) * 0.3,
+            randn(rng, (b, t, n), torch.float32, dev),
+            -torch.from_numpy(np.abs(rng.standard_normal((di, n)))
+                              .astype(np.float32)).to(dev))
+
+
+def form_bx(dt, x, bm) -> torch.Tensor:
+    """v1's bx formed outside the kernel, in the fused kernel's order."""
+    return (dt * x)[..., None] * bm[:, :, None, :]
+
+
+def scan_errors(call) -> dict:
+    """A fused-scan call (dt, x, B, C, A) through both kernels and both
+    plain versions: {check: (max abs error, within SCAN_TOL)}."""
+    dt, x, bm, c, a = call
+    fused = fused_kernel.selective_scan_fused(*call)
+    out = {"fused_vs_plain": within(fused, selective_scan_fused_ref(*call),
+                                    SCAN_TOL)}
+    bx = form_bx(dt, x, bm)
+    v1 = scan_kernel.selective_scan(dt, bx, c, a)
+    out["v1_vs_plain"] = within(v1, selective_scan_ref(dt, bx, c, a),
+                                SCAN_TOL)
+    out["fused_vs_v1"] = within(fused, v1, SCAN_TOL)
+    return out
+
+
+def phase_scan_kernels(dev) -> dict:
+    rng = np.random.default_rng(9)
+    out = {}
+    for shape in SCAN_CASES:
+        errs = scan_errors(fused_case(rng, *shape, dev))
+        torch.cuda.synchronize()
+        out["x".join(map(str, shape))] = {
+            k: {"max_abs_err": e, "ok": ok} for k, (e, ok) in errs.items()}
+    for name, r in out.items():
+        for k, v in r.items():
+            check(v["ok"], f"phase 9 {name} {k}: within {SCAN_TOL}")
+    return out
+
+
+# ----------------------------------------------------------------------
+# phases 10 and 11: the model's prefill and serve steps
+# ----------------------------------------------------------------------
+# (model, layers in phase 10, prompts x tokens of phase 10's prefill)
+MODEL_IDENTITY = [("falcon-mamba-7b", 2, 2, 300),
+                  ("hymba-1.5b", 3, 2, 1100)]   # past the 1,024 window
+IDENTITY_PROMPT, IDENTITY_NEW = 24, 8
+MODEL_MAIN = ["falcon-mamba-7b", "hymba-1.5b"]
+MAIN_BATCH, MAIN_PREFILL = 4, 2048
+MAIN_PROMPT, MAIN_NEW = 64, 64
+BUSY_STEPS = 16               # decode steps profiled for the busy share
+
+
+def reset_model_launches() -> None:
+    for mod in (scan_kernel, fused_kernel, flash_kernel, paged_kernel,
+                kernel):
+        mod.reset_launches()
+
+
+def model_launches() -> dict:
+    return {**scan_kernel.launches, **fused_kernel.launches,
+            **flash_kernel.launches, **paged_kernel.launches,
+            **kernel.launches}
+
+
+def device_busy_ms(fn) -> float:
+    """Device time of everything ``fn`` launches (kernels, copies, fills),
+    summed from ``torch.profiler``'s CUDA activity, in ms; on one stream
+    nothing overlaps.  0.0 when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(getattr(ev, "self_device_time_total",
+                       getattr(ev, "self_cuda_time_total", 0.0))
+               for ev in prof.key_averages()) / 1e3
+
+
+def expected_windows(cfg) -> list:
+    """The window each flash launch of one prefill must carry, layer by
+    layer: None on a full-attention layer."""
+    w = layer_windows(cfg)
+    return [] if w is None else [int(v) or None for v in w]
+
+
+class ModelRecorder:
+    """Wraps the model's calls into the fused scan and flash attention
+    entry points: keeps a copy of the scan calls whose index is in
+    ``keep`` and of the flash calls whose index is in ``keep_flash``
+    (q, k, v, window), and the window of every flash call."""
+
+    def __init__(self, keep=(), keep_flash=()):
+        self.keep, self.seen = set(keep), 0
+        self.keep_flash = set(keep_flash)
+        self.scans, self.flashes, self.windows = [], [], []
+        self._orig = (scan_ops.selective_scan_fused,
+                      flash_ops.flash_attention)
+
+    def scan(self, dt, x, bm, c, a):
+        if self.seen in self.keep:
+            self.scans.append(tuple(t.clone() for t in (dt, x, bm, c, a)))
+        self.seen += 1
+        return self._orig[0](dt, x, bm, c, a)
+
+    def flash(self, q, k, v, causal=True, window=None):
+        if causal and len(self.windows) in self.keep_flash:
+            self.flashes.append(tuple(t.clone() for t in (q, k, v))
+                                + (window,))
+        self.windows.append(window)
+        return self._orig[1](q, k, v, causal, window)
+
+    def __enter__(self):
+        scan_ops.selective_scan_fused, flash_ops.flash_attention = \
+            self.scan, self.flash
+        return self
+
+    def __exit__(self, *exc):
+        scan_ops.selective_scan_fused, flash_ops.flash_attention = \
+            self._orig
+
+
+def serve(cfg, model, prompt: np.ndarray, new: int, dev,
+          keep_logits: bool):
+    """make_serve_step over B sequences: teacher-force ``prompt`` [B, P],
+    then ``new`` greedy tokens.  Returns (tokens fed [B, P + new - 1],
+    tokens generated [B, new], each step's logits [B, V] on the host or
+    None, non-finite logits counted on the device, steps)."""
+    step = make_serve_step(cfg)
+    b, p = prompt.shape
+    caches = init_caches(cfg, b, p + new, device=dev)
+    prompt = torch.from_numpy(prompt).to(dev)
+    nonfinite = torch.zeros((), dtype=torch.int64, device=dev)
+    fed, gen, logs, tok = [], [], [], None
+    for t in range(p + new - 1):
+        if t < p:
+            tok = prompt[:, t:t + 1]
+        fed.append(tok)
+        tok, logits, caches = step(
+            model, tok, torch.full((b,), t, dtype=torch.int32, device=dev),
+            caches)
+        nonfinite.add_((~torch.isfinite(logits)).sum())
+        if t >= p - 1:
+            gen.append(tok)
+        if keep_logits:
+            logs.append(logits[:, 0].float().cpu())
+    return (torch.cat(fed, 1), torch.cat(gen, 1), logs or None, nonfinite,
+            p + new - 1)
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| relative to the largest |want|."""
+    g, w = got.float().cpu(), want.float().cpu()
+    return float((g - w).abs().max() / w.abs().max())
+
+
+def phase_model_identity(card_dev: str = "cuda") -> dict:
+    out = {}
+    for name, layers, b, t in MODEL_IDENTITY:
+        cfg = dataclasses.replace(get_config(name), num_layers=layers)
+        model = init_model(cfg, seed=0, device="cpu", dtype=torch.float32)
+        rng = np.random.default_rng(10)
+        long = rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
+        short = rng.integers(0, cfg.vocab_size,
+                             (b, IDENTITY_PROMPT)).astype(np.int32)
+        runs = {}
+        for dev in (card_dev, "cpu"):
+            m = copy.deepcopy(model).to(dev) if dev == card_dev else model
+            reset_model_launches()
+            with ModelRecorder() as rec:
+                t0 = time.perf_counter()
+                nxt = make_prefill_step(cfg)(
+                    m, {"tokens": torch.from_numpy(long).to(dev)})
+                fed, gen, logs, nonfinite, _ = serve(
+                    cfg, m, short, IDENTITY_NEW, dev, keep_logits=True)
+                runs[dev] = {"prefill": nxt.float().cpu(), "fed": fed,
+                             "gen": gen.cpu(), "decode": logs,
+                             "nonfinite": int(nonfinite)}
+                if dev == card_dev:
+                    # the kernel's logits at every position of the served
+                    # sequence, against the decode's recurrence
+                    with torch.no_grad():
+                        runs[dev]["full"] = forward(
+                            cfg, m, {"tokens": fed}).float().cpu()
+                torch.cuda.synchronize()
+                runs[dev]["wall_s"] = time.perf_counter() - t0
+                runs[dev]["launches"] = model_launches()
+                runs[dev]["windows"] = rec.windows
+            del m
+        torch.cuda.empty_cache()
+        card, cpu = runs[card_dev], runs["cpu"]
+        dec = torch.stack(card["decode"], 1)              # [B, S, V]
+        full = card["full"]
+        # Hymba's decode sees the whole context on its window layers (the
+        # reference's ring-buffer test): compare inside the window only
+        inside = min(dec.shape[1], cfg.sliding_window or dec.shape[1])
+        err, ok = within(dec[:, :inside], full[:, :inside], 3e-2)
+        prefill_calls = 2
+        want = {"selective_scan_fused": layers * prefill_calls,
+                "flash_attention": (layers * prefill_calls
+                                    if cfg.has_attention else 0)}
+        r = {"layers": layers, "prefill_tokens": [b, t],
+             "serve": [b, IDENTITY_PROMPT, IDENTITY_NEW],
+             "prefill_rel_err": rel_err(card["prefill"], cpu["prefill"]),
+             "decode_rel_err": max(rel_err(g, c) for g, c in
+                                   zip(card["decode"], cpu["decode"])),
+             "tokens_identical": bool(torch.equal(card["gen"], cpu["gen"])),
+             "decode_vs_prefill_max_abs_err": err,
+             "decode_vs_prefill_rel_err": rel_err(dec[:, :inside],
+                                                  full[:, :inside]),
+             "positions_compared": inside,
+             "launches": {d: r_["launches"] for d, r_ in runs.items()},
+             "wall_s": {d: r_["wall_s"] for d, r_ in runs.items()}}
+        out[name] = r
+        check(r["prefill_rel_err"] <= 1e-4,
+              f"phase 10 {name}: card prefill logits within 1e-4 of the "
+              "CPU's")
+        check(r["tokens_identical"],
+              f"phase 10 {name}: card and CPU greedy tokens identical")
+        check(ok, f"phase 10 {name}: card prefill and decode logits within "
+              "3e-2")
+        check(card["nonfinite"] == cpu["nonfinite"] == 0,
+              f"phase 10 {name}: finite logits")
+        launched = card["launches"]
+        check(all(launched[k] == n for k, n in want.items())
+              and launched["selective_scan"] == 0,
+              f"phase 10 {name}: one scan (and flash) launch per layer of "
+              "each prefill on the card")
+        check(card["windows"] == expected_windows(cfg) * prefill_calls,
+              f"phase 10 {name}: flash windows as layer_windows gives")
+        check(not any(cpu["launches"].values()),
+              f"phase 10 {name}: the CPU run launched no kernel")
+    return out
+
+
+def main_inputs(cfg) -> tuple:
+    """Phase 11's seeded tokens: the prefill's [MAIN_BATCH, MAIN_PREFILL]
+    (a tensor) and the served prompts' [MAIN_BATCH, MAIN_PROMPT]."""
+    rng = np.random.default_rng(11)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (MAIN_BATCH, MAIN_PREFILL)).astype(np.int32))
+    short = rng.integers(0, cfg.vocab_size,
+                         (MAIN_BATCH, MAIN_PROMPT)).astype(np.int32)
+    return prompts, short
+
+
+def phase_busy_share(model_out: dict, dev: str = "cuda") -> dict:
+    """The device's busy share of phase 11's prefill and decode: each
+    model made again (same seed), one prefill and BUSY_STEPS decode steps
+    under the profiler, their device time over phase 11's unprofiled wall
+    time.  It runs last: after traces this large, later profiler traces
+    in the process missed their first kernels (phase 12's device times)."""
+    out = {}
+    for name, o in model_out.items():
+        cfg = get_config(name)
+        model = init_model(cfg, seed=0, device=dev)
+        prompts, short = main_inputs(cfg)
+        prefill_dev = device_busy_ms(lambda: make_prefill_step(cfg)(
+            model, {"tokens": prompts.to(dev)}))
+        step_dev = device_busy_ms(lambda: serve(
+            cfg, model, short[:, :8], BUSY_STEPS - 7, dev,
+            keep_logits=False)) / BUSY_STEPS
+        d, pre = o["decode"], o["prefill"]
+        out[name] = {
+            "prefill_device_ms": prefill_dev,
+            "prefill_busy_share": prefill_dev / (1e3 * pre["seconds"]),
+            "decode_device_ms_per_step": step_dev,
+            "decode_wall_ms_per_step": 1e3 * d["seconds"] / d["steps"],
+            "decode_busy_share": step_dev * d["steps"] / (1e3 * d["seconds"])}
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def flash_picks(cfg, seed: int = 13) -> list:
+    """Phase 12's flash calls of one prefill: one full-attention layer and
+    two sliding-window layers, each drawn uniformly from its kind (none
+    when the model has no attention)."""
+    windows = expected_windows(cfg)
+    rng = np.random.default_rng(seed)
+    pick = []
+    for layers, n in (([i for i, w in enumerate(windows) if w is None], 1),
+                      ([i for i, w in enumerate(windows) if w], 2)):
+        if layers:
+            pick += rng.choice(layers, min(n, len(layers)),
+                               replace=False).tolist()
+    return sorted(pick)
+
+
+def phase_model_main(name: str, dev: str = "cuda", keep: int = 3):
+    """The serving path of one model at full size, bf16 random weights made
+    on the card: make_prefill_step on MAIN_BATCH prompts of MAIN_PREFILL
+    tokens, then make_serve_step on MAIN_BATCH sequences (MAIN_PROMPT
+    teacher-forced, MAIN_NEW generated).  ``keep`` fused-scan calls,
+    picked uniformly from the prefill's, and the flash calls of
+    ``flash_picks`` are kept for phase 12."""
+    cfg = get_config(name)
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    prompts, short = main_inputs(cfg)
+    pick = sorted(np.random.default_rng(12).choice(
+        cfg.num_layers, keep, replace=False).tolist())
+    flash_pick = flash_picks(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    with ModelRecorder(pick, flash_pick) as rec:
+        reset_model_launches()
+        t0 = time.perf_counter()
+        logits = make_prefill_step(cfg)(model,
+                                        {"tokens": prompts.to(dev)})
+        nonfinite = int((~torch.isfinite(logits)).sum())
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_launches = model_launches()
+        del logits
+        reset_model_launches()
+        t0 = time.perf_counter()
+        _, gen, _, dec_nonfinite, steps = serve(cfg, model, short, MAIN_NEW,
+                                                dev, keep_logits=False)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        decode_launches = model_launches()
+    expected = {"selective_scan_fused": cfg.num_layers,
+                "flash_attention": (cfg.num_layers if cfg.has_attention
+                                    else 0)}
+    windows = expected_windows(cfg)
+    out = {
+        "model": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "d_inner": cfg.d_inner_, "ssm_state": cfg.ssm_state,
+        "params": sum(p.numel() for p in model.parameters()),
+        "load_s": load_s,
+        "prefill": {"batch": MAIN_BATCH, "tokens": MAIN_PREFILL,
+                    "seconds": prefill_s,
+                    "tokens_per_s": MAIN_BATCH * MAIN_PREFILL / prefill_s,
+                    "launches": prefill_launches,
+                    "windowed_flash": sum(w is not None
+                                          for w in rec.windows)},
+        "decode": {"batch": MAIN_BATCH, "prompt": MAIN_PROMPT,
+                   "new": MAIN_NEW, "steps": steps, "seconds": decode_s,
+                   "tokens_per_s": MAIN_BATCH * steps / decode_s,
+                   "new_tokens": int(gen.numel()),
+                   "launches": decode_launches},
+        "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "nonfinite_logits": nonfinite + int(dec_nonfinite),
+        "expected_launches": expected}
+    check(all(prefill_launches[k] == n for k, n in expected.items())
+          and sum(prefill_launches.values()) == sum(expected.values()),
+          f"phase 11 {name}: one fused scan (and flash) launch per layer of "
+          "the prefill, nothing else")
+    check(rec.windows == windows,
+          f"phase 11 {name}: flash windows on exactly the layers "
+          "layer_windows gives one")
+    check(not any(decode_launches.values()),
+          f"phase 11 {name}: decode launched no kernel")
+    check(gen.shape == (MAIN_BATCH, MAIN_NEW),
+          f"phase 11 {name}: every sequence generated its tokens")
+    check(out["nonfinite_logits"] == 0, f"phase 11 {name}: finite logits")
+    check(len(rec.scans) == keep and len(rec.flashes) == len(flash_pick),
+          f"phase 11 {name}: scan and flash calls kept")
+    out["flash_layers_kept"] = flash_pick
+    del model
+    torch.cuda.empty_cache()
+    return out, rec.scans, rec.flashes
+
+
+# ----------------------------------------------------------------------
+# phase 12: the captured scan calls, again and timed
+# ----------------------------------------------------------------------
+SCAN_FLOPS = 6                 # exp argument, decay, dt*x*B, h, h*c, sum
+SCAN_SOURCE = scan_kernel.SOURCE
+
+
+def scan_bound(call, v1: bool) -> tuple:
+    """(bytes / HBM rate, flops / CUDA-core rate) in seconds: inputs read
+    once (dt, x, B, C, A for the fused kernel; dt, bx, C, A for v1), y
+    written once; SCAN_FLOPS per (t, d, n)."""
+    dt, x, bm, c, a = call
+    b, t, di = dt.shape
+    n = a.shape[1]
+    per_td = 2 + (n if v1 else 1)              # dt, y, then x or bx
+    nbytes = 4 * (b * t * di * per_td + b * t * n * (1 if v1 else 2)
+                  + di * n)
+    return nbytes / HBM_BYTES_PER_S, \
+        SCAN_FLOPS * b * t * di * n / CUDA_CORE_OPS_PER_S
+
+
+def bracketed_ms(fn, calls, reps: int) -> float:
+    """Mean device time of one launch from CUDA events recorded on the
+    stream just before and just after it.  The same call is launched
+    first, so the card is still busy with it while the host queues the
+    events and the timed launch (a few tens of µs against a kernel of
+    0.5 ms or more): the events bracket the kernel alone.  (The
+    profiler's CUDA activity, which phases 4 and 8 read, came back without
+    the scan kernels' launches in whole-script runs.)"""
+    pairs = []
+    for _ in range(reps):
+        for c in calls:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            fn(*c)
+            start.record()
+            fn(*c)
+            end.record()
+            pairs.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.mean([s.elapsed_time(e) for s, e in pairs]))
+
+
+def v1_args(call) -> tuple:
+    dt, x, bm, c, a = call
+    return dt, form_bx(dt, x, bm), c, a
+
+
+def phase_scan_captured(calls: dict, launched: dict) -> list:
+    """Each kept fused-scan call of phase 11 (by model) through kernel and
+    plain version, compared and timed; v1 on the same calls with bx formed
+    outside (one call's bx at a time, the forming not timed)."""
+    flat = [c for cs in calls.values() for c in cs]
+    worst = {"selective_scan_fused": 0.0, "selective_scan": 0.0}
+    for call in flat:
+        errs = scan_errors(call)
+        for k, (e, ok) in errs.items():
+            check(ok, f"phase 12 {k} within {SCAN_TOL} on a captured call")
+        worst["selective_scan_fused"] = max(worst["selective_scan_fused"],
+                                            errs["fused_vs_plain"][0])
+        worst["selective_scan"] = max(worst["selective_scan"],
+                                      errs["v1_vs_plain"][0])
+    v1_ms, v1_plain, v1_dev = [], [], []
+    for call in flat:
+        args = v1_args(call)
+        v1_ms.append(cuda_ms(scan_kernel.selective_scan, [args], 10))
+        v1_plain.append(cuda_ms(selective_scan_ref, [args], 1))
+        v1_dev.append(bracketed_ms(scan_kernel.selective_scan, [args], 5))
+        del args
+    kernels = []
+    for name, v1 in (("selective_scan", True),
+                     ("selective_scan_fused", False)):
+        t_bytes, t_ops = zip(*(scan_bound(c, v1) for c in flat))
+        row = {"name": name, "route": "cuda",
+               "source": str(SCAN_SOURCE.relative_to(ROOT)),
+               "replaces": REPLACES[name], "launches": launched[name],
+               "max_abs_err": worst[name], "dtype": "float32",
+               "bound_ms": 1e3 * float(np.mean(np.maximum(t_bytes, t_ops))),
+               "bound_by": ("bytes" if np.mean(t_bytes) >= np.mean(t_ops)
+                            else "operations"),
+               "library_ms": None,
+               "timed_calls": len(flat),
+               "calls_by_model": {m: len(cs) for m, cs in calls.items()},
+               "shapes": sorted({tuple(c[0].shape) + (c[4].shape[1],)
+                                 for c in flat})}
+        if v1:
+            row.update(ms=float(np.mean(v1_ms)),
+                       plain_ms=float(np.mean(v1_plain)),
+                       on_main_path=False)
+        else:
+            row.update(ms=cuda_ms(fused_kernel.selective_scan_fused, flat,
+                                  10),
+                       plain_ms=cuda_ms(selective_scan_fused_ref, flat, 1),
+                       on_main_path=True)
+        # the same per model: each model's calls share one shape
+        row["by_model"], i = {}, 0
+        for model, cs in calls.items():
+            part = slice(i, i + len(cs))
+            i += len(cs)
+            if v1:
+                ms = float(np.mean(v1_ms[part]))
+                dev_ms = float(np.mean(v1_dev[part]))
+            else:
+                ms = cuda_ms(fused_kernel.selective_scan_fused, cs, 10)
+                dev_ms = bracketed_ms(fused_kernel.selective_scan_fused, cs,
+                                      5)
+            row["by_model"][model] = {
+                "shape": list(cs[0][0].shape) + [cs[0][4].shape[1]],
+                "ms": ms, "device_ms": dev_ms,
+                "bound_ms": 1e3 * float(np.mean(np.maximum(
+                    t_bytes[part], t_ops[part])))}
+        # every model times the same number of calls
+        row["device_ms"] = float(np.mean(
+            [m["device_ms"] for m in row["by_model"].values()]))
+        kernels.append(row)
+    return kernels
+
+
+def flash_window(q, k, v, window):
+    return flash_kernel.flash_attention_fwd(q, k, v, causal=True,
+                                            window=window)
+
+
+def flash_window_ref(q, k, v, window):
+    return attention_ref(q, k, v, causal=True, window=window)
+
+
+def flash_library(call, gqa: bool) -> tuple:
+    """(fn, args) of scaled_dot_product_attention on one causal flash call,
+    its window as a boolean mask made outside the timed call."""
+    q, k, v, window = call
+    mask = None
+    if window is not None:
+        pos = torch.arange(q.shape[2], device=q.device)
+        mask = (pos[None, :] <= pos[:, None]) & \
+            (pos[None, :] > pos[:, None] - window)
+    if not gqa:
+        g = q.shape[1] // k.shape[1]
+        k, v = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+    kw = {"enable_gqa": True} if gqa else {}
+    return (lambda q_, k_, v_, m_: F.scaled_dot_product_attention(
+        q_, k_, v_, attn_mask=m_, is_causal=m_ is None, **kw)), \
+        (q, k, v, mask)
+
+
+def flash_bound(call) -> tuple:
+    """(bytes / HBM rate, ops / peak rate of the inputs' type) in seconds:
+    q, k, v read once and the output written once; 4 flops per (query
+    head, visible key, head dim), the keys each query sees under its
+    window counted."""
+    q, k, _, window = call
+    b, h, s, d = q.shape
+    seen = np.minimum(np.arange(1, s + 1), window or s).sum()
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 \
+        else CUDA_CORE_OPS_PER_S
+    return nbytes / HBM_BYTES_PER_S, 4 * b * h * d * float(seen) / rate
+
+
+def phase_flash_captured(calls: dict, launched: dict) -> dict:
+    """Each kept flash call of phase 11 (by model) through the kernel and
+    its plain version, compared at the dtype's tolerance, and timed beside
+    its bound and scaled_dot_product_attention: one ``by_model`` entry of
+    the flash row per model with attention."""
+    gqa = sdpa_gqa()
+    out = {}
+    for model, cs in calls.items():
+        if not cs:
+            continue
+        dtype = cs[0][0].dtype
+        worst, lib_worst = 0.0, 0.0
+        lib = [flash_library(c, gqa) for c in cs]
+        for c, (lib_fn, lib_args) in zip(cs, lib):
+            want = flash_window_ref(*c)
+            err, ok = within(flash_window(*c), want, TOL[dtype])
+            check(ok, f"phase 12 {model} flash (window {c[3]}) within "
+                  f"{TOL[dtype]} of plain on a captured call")
+            worst = max(worst, err)
+            lib_worst = max(lib_worst, within(lib_fn(*lib_args), want,
+                                              TOL[dtype])[0])
+            del want
+        t_bytes, t_ops = zip(*(flash_bound(c) for c in cs))
+        out[model] = {
+            "shape": list(cs[0][0].shape) + [cs[0][1].shape[1]],
+            "dtype": str(dtype).split(".")[1],
+            "windows": [c[3] for c in cs], "launches": launched[model],
+            "timed_calls": len(cs), "max_abs_err": worst,
+            "ms": cuda_ms(flash_window, cs, 10),
+            "device_ms": bracketed_ms(flash_window, cs, 5),
+            "plain_ms": cuda_ms(flash_window_ref, cs, 2),
+            "library_ms": cuda_ms(lib[0][0], [a for _, a in lib], 10),
+            "library_max_abs_err": lib_worst,
+            "bound_ms": 1e3 * float(np.mean(np.maximum(t_bytes, t_ops))),
+            "bound_by": ("bytes" if np.mean(t_bytes) >= np.mean(t_ops)
+                         else "operations")}
+        del lib
+        torch.cuda.empty_cache()
+    return out
+
+
+def merge_flash(kernels: list, by_model: dict) -> None:
+    """Give phase 8's flash row (the serving engine's Qwen3-1.7B calls) a
+    ``by_model`` entry per model, phase 12's beside it; its launches count
+    every main path the kernel ran on.  No-op without phase 8's row."""
+    for row in kernels:
+        if row["name"] == "flash_attention":
+            row["by_model"] = {"qwen3-1.7b": {
+                k: row[k] for k in (
+                    "dtype", "launches", "timed_calls", "max_abs_err", "ms",
+                    "device_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by", "mean_prompt")}, **by_model}
+            row["launches"] += sum(m["launches"] for m in by_model.values())
+
+
 def timings(card: str, kernels: list) -> dict:
     return {"card": card, "kernels": [
         {k: v for k, v in d.items() if k in (
             "name", "ms", "plain_ms", "device_ms", "bound_ms", "library_ms",
             "timed_calls", "mean_items_per_call", "mean_context",
-            "mean_prompt")}
+            "mean_prompt", "by_model")}
         for d in kernels]}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
                     help="comma-separated phases to run (4 needs 3, 8 "
-                         "needs 7); the result lines print only when all "
-                         "eight run")
+                         "needs 7, 12 needs 11); the result lines print "
+                         "only when all twelve run")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
-    if (4 in phases and 3 not in phases) or (8 in phases and 7 not in phases):
-        ap.error("phase 4 needs phase 3 and phase 8 needs phase 7")
+    for later, first in ((4, 3), (8, 7), (12, 11)):
+        if later in phases and first not in phases:
+            ap.error(f"phase {later} needs phase {first}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible (torch.cuda.is_available() "
               "is False)", file=sys.stderr)
@@ -995,8 +1639,9 @@ def main() -> int:
     print(card, flush=True)
     t0 = time.perf_counter()
     libs = _build.build_all([kernel.SOURCE, paged_kernel.SOURCE,
-                             flash_kernel.SOURCE], force=True)
-    for mod in (kernel, paged_kernel, flash_kernel):
+                             flash_kernel.SOURCE, scan_kernel.SOURCE],
+                            force=True)
+    for mod in (kernel, paged_kernel, flash_kernel, scan_kernel):
         mod.load()
     emit(build={"libraries": [str(lib.relative_to(ROOT)) for lib in libs],
                 "seconds": time.perf_counter() - t0})
@@ -1028,7 +1673,30 @@ def main() -> int:
                                              serve_out["launches"])
         emit(phase8=timings(card, attention))
         kernels += attention
-    if phases != set(range(1, 9)):
+    if 9 in phases:
+        emit(phase9=phase_scan_kernels(dev), card=card)
+    if 10 in phases:
+        emit(phase10=phase_model_identity(), card=card)
+    if 11 in phases:
+        model_out, captured, flashes = {}, {}, {}
+        for name in MODEL_MAIN:
+            model_out[name], captured[name], flashes[name] = \
+                phase_model_main(name)
+            emit(phase11={name: model_out[name]}, card=card)
+    if 12 in phases:
+        launched = {k: sum(o["prefill"]["launches"][k]
+                           for o in model_out.values())
+                    for k in ("selective_scan", "selective_scan_fused")}
+        scans = phase_scan_captured(captured, launched)
+        flash_by_model = phase_flash_captured(
+            flashes, {m: o["prefill"]["launches"]["flash_attention"]
+                      for m, o in model_out.items()})
+        emit(phase12=timings(card, scans), phase12_flash=flash_by_model)
+        kernels += scans
+        merge_flash(kernels, flash_by_model)
+    if 11 in phases:
+        emit(phase11_busy=phase_busy_share(model_out), card=card)
+    if phases != set(ALL_PHASES):
         return 0
     emit(kernels=kernels)
     emit(ok=True, device={"platform": "gpu",

@@ -4,7 +4,8 @@ The reference keeps a parameter tree of arrays with the layers stacked on
 a leading axis (``params["layers"]["attn"]["wq"][li]``); the port keeps a
 ``ModuleList`` of layers.  ``from_reference`` takes that tree with numpy
 arrays as leaves and returns a ``Model`` holding the same values in the
-same dtypes.  bf16 arrives as an ``ml_dtypes.bfloat16`` numpy array, which
+same dtypes (fp32 leaves such as Mamba's ``A_log`` and ``D`` stay fp32).
+bf16 arrives as an ``ml_dtypes.bfloat16`` numpy array, which
 ``torch.from_numpy`` does not take: it crosses as float32, which holds
 every bf16 value exactly.
 """
@@ -40,14 +41,14 @@ def reference_leaf(params: Dict, name: str) -> np.ndarray:
 
 
 def from_reference(cfg: ModelConfig, params: Dict,
-                   device="cpu") -> Model:
+                   device="cuda") -> Model:
     """A ``Model`` on ``device`` holding the reference tree's values."""
     model = Model(cfg, device="meta")
     state = {name: _tensor(np.asarray(reference_leaf(params, name)), device)
              for name, _ in model.named_parameters()}
     missing = set(params) - {"embed", "final_norm", "layers", "lm_head"}
     if missing:
-        raise ValueError(f"reference parameters not in the port's dense "
+        raise ValueError(f"reference parameters not in the port's "
                          f"model: {sorted(missing)}")
     model.load_state_dict(state, assign=True)
     return model

@@ -1,17 +1,24 @@
-"""Model building blocks of the dense decoder: norms, RoPE, GQA projections
-and the MLP.
+"""Model building blocks of the dense, ssm and hybrid families: norms,
+RoPE, GQA attention (prefill and dense-cache decode), the MLP and Mamba-1.
 
-Attention and MLP parameters live in ``nn.Module``s that keep the
-reference's names (``wq wk wv wo bq bk bv q_norm k_norm``, ``w_gate w_up
-w_down``, ``wi wo``) and its ``[in, out]`` layout, so ``x @ w`` reads as
-it does there; the functions take the module the way the reference's take
-a parameter dict.  Parameters are bf16 (``DTYPE``) and drawn from a
-``torch.Generator`` on the given device.
+Parameters live in ``nn.Module``s that keep the reference's names (``wq wk
+wv wo bq bk bv q_norm k_norm``, ``w_gate w_up w_down``, ``wi wo``,
+``in_proj conv_w conv_b x_proj dt_proj dt_bias A_log D out_proj``) and its
+``[in, out]`` layout, so ``x @ w`` reads as it does there; the functions
+take the module the way the reference's take a parameter dict.
+Parameters are bf16 (``DTYPE``) and drawn from a ``torch.Generator`` on
+the given device, except Mamba's ``A_log`` and ``D``, which are fp32 as
+in the reference.
 
 Where the reference mixes dtypes, JAX promotes (fp32 @ bf16 -> fp32);
 ``torch.matmul`` refuses mixed operands, so ``matmul`` casts both to
-``torch.promote_types`` first.  MoE, Mamba, cross-attention and the dense
-``sdpa`` come with later slices.
+``torch.promote_types`` first.  Elementwise ops promote alike in both.
+
+The prefill runs attention through ``flash_attention`` and the scan
+through ``selective_scan_fused``: their kernels for CUDA tensors, their
+plain versions for CPU tensors.  Decode (one token against
+dense caches) stays plain tensor ops, as in the reference.  MoE and
+cross-attention come with later slices.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import ModelConfig
+from ..kernels.flash_attention import ops as flash_ops
+from ..kernels.selective_scan import ops as scan_ops
 
 DTYPE = torch.bfloat16
 
@@ -55,6 +64,14 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in the promoted dtype of the two, as JAX computes it."""
     dt = torch.promote_types(a.dtype, b.dtype)
     return a.to(dt) @ b.to(dt)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x) with sigmoid as 1 / (1 + exp(-x)), each op rounded
+    in x's dtype: ``jax.nn.silu`` as XLA expands it, bit for bit in bf16
+    (``F.silu`` rounds once and differs in the last bit of a third of
+    bf16 values)."""
+    return x * (1 / (1 + torch.exp(-x)))
 
 
 # ======================================================================
@@ -163,5 +180,160 @@ def mlp(p: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.act == "gelu":
         # jax.nn.gelu's default is the tanh approximation
         return matmul(F.gelu(matmul(x, p.wi), approximate="tanh"), p.wo)
-    return matmul(F.silu(matmul(x, p.w_gate)) * matmul(x, p.w_up),
+    return matmul(silu(matmul(x, p.w_gate)) * matmul(x, p.w_up),
                   p.w_down)
+
+
+# ======================================================================
+# attention over a sequence (prefill) and against a dense cache (decode)
+# ======================================================================
+def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor,
+              window: Optional[int] = None) -> torch.Tensor:
+    """Causal self-attention over a prefill sequence through
+    ``flash_attention`` (the kernel on the card, its plain version on the
+    CPU; both keep the softmax weights in fp32 for the product with v);
+    ``window`` is the layer's sliding window or None for a full-attention
+    layer (the reference encodes full attention as a window of 2**30)."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    heads = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+    out = flash_ops.flash_attention(*heads, causal=True, window=window)
+    return matmul(out.transpose(1, 2).reshape(b, s, -1), p.wo)
+
+
+def attention_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     cache_len: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token decode against a dense KV cache.
+
+    x: [B, 1, d]; k_cache/v_cache: [B, S, KV, D]; cache_len: [B] int, the
+    new token's position (it goes to slot ``cache_len % S``).  Returns
+    (out [B, 1, d], k_cache, v_cache): the given caches with the new
+    token's k/v written in place, where the reference's functional update
+    makes new ones (the serve step owns its caches).
+
+    The mask is the reference's: slots up to ``min(cache_len, S - 1)``,
+    and of those only the ones a ring buffer of S slots still holds
+    (``slot > cache_len - S``).  The reference applies that test on every
+    layer (its decode passes each layer a window array, never None) and
+    has no other window test, so a sliding-window layer whose cache holds
+    ``max_len`` slots (Hymba's, which has full-attention layers too)
+    attends to the whole context in decode while ``forward`` masks it to
+    the window.
+    """
+    b = x.shape[0]
+    s_max = k_cache.shape[1]
+    q, k, v = _project_qkv(p, cfg, x, x)
+    pos = cache_len[:, None]
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    slot = (cache_len % s_max).long()
+    bidx = torch.arange(b, device=x.device)
+    k_cache[bidx, slot] = k[:, 0].to(k_cache.dtype)
+    v_cache[bidx, slot] = v[:, 0].to(v_cache.dtype)
+    kpos = torch.arange(s_max, device=x.device)[None, :]
+    valid = (kpos <= torch.clamp(pos, max=s_max - 1)) & (kpos > pos - s_max)
+    g = cfg.num_heads // cfg.num_kv_heads
+    kvh, hd = cfg.num_kv_heads, cfg.head_dim_
+    qr = q.reshape(b, kvh, g, hd)
+    scores = torch.einsum("bhgd,bkhd->bhgk", qr.float(),
+                          k_cache.to(q.dtype).float()) / math.sqrt(hd)
+    scores = scores.masked_fill(~valid[:, None, None, :], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", probs.to(q.dtype),
+                       v_cache.to(q.dtype))
+    out = out.reshape(b, 1, cfg.num_heads * hd)
+    return matmul(out, p.wo), k_cache, v_cache
+
+
+# ======================================================================
+# Mamba-1 (selective state space)
+# ======================================================================
+class Mamba(nn.Module):
+    """Mamba-1 parameters: ``A_log`` [di, N] = log(1..N) on every channel
+    and ``D`` [di] = 1, both fp32; the rest DTYPE."""
+
+    def __init__(self, cfg: ModelConfig,
+                 gen: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        d, di = cfg.d_model, cfg.d_inner_
+        n, rk, kc = cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
+        self.in_proj = _dense_init(gen, (d, 2 * di), device)
+        self.conv_w = _dense_init(gen, (kc, di), device)
+        self.conv_b = _zeros((di,), device)
+        self.x_proj = _dense_init(gen, (di, rk + 2 * n), device)
+        self.dt_proj = _dense_init(gen, (rk, di), device)
+        self.dt_bias = _zeros((di,), device)
+        a = torch.arange(1, n + 1, dtype=torch.float32, device=device)
+        self.A_log = nn.Parameter(torch.log(a)[None, :].repeat(di, 1))
+        self.D = nn.Parameter(torch.ones((di,), dtype=torch.float32,
+                                         device=device))
+        self.out_proj = _dense_init(gen, (di, d), device)
+
+
+def init_mamba(cfg: ModelConfig, gen: Optional[torch.Generator] = None,
+               device=None) -> Mamba:
+    return Mamba(cfg, gen, device)
+
+
+def _ssm_inputs(p: Mamba, cfg: ModelConfig, xs: torch.Tensor):
+    """(dt fp32, B, C) from the conv output: ``x_proj``, its split and
+    softplus in fp32.  The reference casts ``dt_in @ dt_proj`` to fp32,
+    and XLA folds that cast into the product, so its dt is the product of
+    the operands accumulated in fp32 and never rounded to their dtype;
+    the port computes it so.  ``F.softplus`` returns x itself above its
+    threshold of 20, where ``jax.nn.softplus`` adds log1p(exp(-x)) <
+    2.1e-9, below fp32's resolution there."""
+    n, rk = cfg.ssm_state, cfg.dt_rank
+    dt_in, b_in, c_in = torch.split(matmul(xs, p.x_proj), [rk, n, n],
+                                    dim=-1)
+    dt = F.softplus(dt_in.float() @ p.dt_proj.float() + p.dt_bias)
+    return dt, b_in, c_in
+
+
+def mamba(p: Mamba, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Mamba-1 block over a prefill sequence: x [B, T, d] -> [B, T, d].
+    The scan is the fused selective scan (kernel on the card), which never
+    forms the [B, T, di, N] bx; any T."""
+    t, kc = x.shape[1], cfg.ssm_conv
+    xs, z = torch.chunk(matmul(x, p.in_proj), 2, dim=-1)
+    # causal depthwise conv as a sum of shifted products
+    xpad = F.pad(xs, (0, 0, kc - 1, 0))
+    conv = xpad[:, 0:t] * p.conv_w[0]
+    for i in range(1, kc):
+        conv = conv + xpad[:, i:i + t] * p.conv_w[i]
+    xs = silu(conv + p.conv_b)
+    dt, b_in, c_in = _ssm_inputs(p, cfg, xs)
+    y = scan_ops.selective_scan_fused(
+        dt, xs.float().contiguous(), b_in.float().contiguous(),
+        c_in.float().contiguous(), -torch.exp(p.A_log))
+    y = y + xs.float() * p.D
+    return matmul(y.to(x.dtype) * silu(z), p.out_proj)
+
+
+def mamba_decode(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
+                 conv_state: torch.Tensor, ssm_state: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-token Mamba step: x [B, 1, d]; conv_state [B, kc - 1, di];
+    ssm_state [B, di, N] fp32 -> (y [B, 1, d], conv_state, ssm_state).
+    The new conv state has the promoted dtype of the old one and x's
+    projection, as in the reference (a bf16 cache turns fp32 under fp32
+    weights)."""
+    xs, z = torch.chunk(matmul(x[:, 0], p.in_proj), 2, dim=-1)
+    wdt = torch.promote_types(conv_state.dtype, xs.dtype)
+    window = torch.cat([conv_state.to(wdt), xs[:, None].to(wdt)], dim=1)
+    cdt = torch.promote_types(wdt, p.conv_w.dtype)
+    xs = torch.einsum("bkd,kd->bd", window.to(cdt), p.conv_w.to(cdt))
+    xs = silu(xs + p.conv_b)
+    dt, b_in, c_in = _ssm_inputs(p, cfg, xs)
+    decay = torch.exp(dt[..., None] * -torch.exp(p.A_log))
+    bx = dt[..., None] * b_in[:, None, :].float() * xs[..., None].float()
+    ssm_state = ssm_state * decay + bx
+    y = torch.einsum("bdn,bn->bd", ssm_state, c_in.float())
+    y = y + xs.float() * p.D
+    y = y.to(x.dtype) * silu(z)
+    return matmul(y, p.out_proj)[:, None], window[:, 1:], ssm_state

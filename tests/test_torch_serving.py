@@ -286,7 +286,7 @@ def test_config_matches_reference():
 
 def test_convert_carries_every_parameter(smoke):
     cfg, params = smoke
-    model = from_reference(get_config(cfg.name), params)
+    model = from_reference(get_config(cfg.name), params, device="cpu")
     names = [n for n, _ in model.named_parameters()]
     n_ref = sum(a.size for a in jax.tree.leaves(params))
     assert sum(p.numel() for p in model.parameters()) == n_ref
@@ -300,7 +300,8 @@ def test_convert_carries_every_parameter(smoke):
 
 def _engines(cfg, params, **kw):
     port = serving.ServingEngine(get_config(cfg.name),
-                                 from_reference(get_config(cfg.name), params),
+                                 from_reference(get_config(cfg.name), params,
+                                                device="cpu"),
                                  torch_device="cpu", **kw)
     ref = ref_serving.ServingEngine(cfg, jax.tree.map(jnp.asarray, params),
                                     **kw)
@@ -371,6 +372,6 @@ def test_engine_on_cuda_without_card_raises(smoke):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is visible")
     cfg, params = smoke
-    model = from_reference(get_config(cfg.name), params)
+    model = from_reference(get_config(cfg.name), params, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA card"):
         serving.ServingEngine(get_config(cfg.name), model)
