@@ -33,7 +33,14 @@ nvcc per source, all started together, into ``build/repro_torch/``, then:
    forward against their plain PyTorch versions on the card, in fp32 and
    bf16, at the sweep shapes of ``tests/test_kernels.py``, flash at ragged
    prompt lengths (1000 and 1531, causal, GQA 2:1, D 128) and paged at the
-   serving engine's shapes; fp32 within 2e-5, bf16 within 2e-2;
+   serving engine's shapes; then the redesigned kernels' edges: flash at
+   Hymba-1.5B's prefill (B 4, 25 / 5 heads, S 2,048, D 64, full and
+   1,024-window), G 5 and 3 at ragged S, D 16 to 256 (bf16 takes the
+   tensor-core kernel, D 40 and 30 the CUDA-core one), each causal, full,
+   64-window and 1,024-window; paged with lens 0, on a split's last and
+   the next split's first position, a ragged tail after full splits, and
+   block tables far past the context (empty splits); fp32 within 2e-5,
+   bf16 within 2e-2;
 6. serving identity: Qwen3-1.7B at full width cut to 2 layers, fp32
    weights from one seeded generator, serves the same four requests on
    ``torch_device="cuda"`` and on ``"cpu"`` with a device KV pool small
@@ -46,7 +53,8 @@ nvcc per source, all started together, into ``build/repro_torch/``, then:
    weights (seed 0) on the card, 24 requests of 512-1536 prompt tokens and
    64 new tokens each through ``ServingEngine`` over HHZS-tiered paged KV,
    with the launch counts zeroed just before ``run`` and read just after:
-   one flash launch per layer of each prefill, one paged launch per layer
+   one flash launch per layer of each prefill (each counted by the kernel
+   it took: fp32 goes to the CUDA-core kernel), one paged launch per layer
    of each decode step, no Bloom launch; tier migrations must fire;
 8. attention kernels at the serving path's shapes: calls captured in
    phase 7 again through kernel, plain version and
@@ -74,18 +82,20 @@ nvcc per source, all started together, into ``build/repro_torch/``, then:
    ``make_serve_step`` on 4 sequences (64 prompt tokens teacher-forced, 64
    generated), counts zeroed before and read after each: one fused-scan
    launch per layer of the prefill, one flash launch per Hymba layer with
-   its window exactly where ``layer_windows`` gives one, no kernel in
-   decode; finite logits.  After phase 12, each model is made again and
-   one prefill and 16 decode steps run under the profiler: the device's
-   busy share of phase 11's wall time (``phase11_busy``);
+   its window exactly where ``layer_windows`` gives one, every one on the
+   tensor-core kernel, no kernel in decode; finite logits.  After phase
+   12, each model is made again and one prefill and 16 decode steps run
+   under the profiler: the device's busy share of phase 11's wall time
+   (``phase11_busy``);
 12. the scans at the path's shapes: fused-scan calls captured uniformly in
    phase 11 again through the kernel and its plain version, and through
    v1 with bx formed outside (not timed), compared and timed beside the
    least time the card could take (no PyTorch call computes the scan);
    likewise Hymba's flash calls captured in phase 11 (windowed and full
    layers, bf16) against the plain version within 2e-2, timed beside
-   their bound and ``scaled_dot_product_attention``: the ``by_model``
-   entries of the flash row.
+   their bound, ``scaled_dot_product_attention`` and the wrapper's other
+   kernel, on the CUDA cores (``simt_ms``): the ``by_model`` entries of
+   the flash row.
 
 TF32 is off for matmuls and cuDNN (the defaults for matmuls), so fp32
 products on the card are full fp32.  Each phase prints one JSON line; the
@@ -610,9 +620,33 @@ def phase_captured(rec: Recorder, pk_rec: Recorder, launched: dict,
 FLASH_CASES = [(1, 4, 4, 256, 64), (2, 8, 2, 512, 64), (1, 8, 1, 256, 128),
                (1, 16, 8, 1000, 128), (1, 16, 8, 1531, 128)]
 FLASH_MASKS = [(True, None), (False, None), (True, 64)]
+# the edges of the redesigned kernels, each under FLASH_EDGE_MASKS: G 5 and
+# 3 at ragged S (not a multiple of the 64-key tile) at D 64 and 128, D 16,
+# 48 (padded to 64) and 256, D 40 (bf16 takes the CUDA-core kernel) and D
+# 30 (rows loaded a value at a time in fp32 too)
+FLASH_EDGE = [(2, 25, 5, 1531, 64), (1, 15, 5, 1531, 128),
+              (1, 9, 3, 1531, 64), (1, 6, 2, 997, 128), (1, 6, 3, 200, 16),
+              (1, 4, 1, 100, 48), (1, 4, 2, 333, 256), (1, 4, 2, 100, 40),
+              (1, 6, 3, 77, 30)]
+FLASH_EDGE_MASKS = [(True, None), (False, None), (True, 64), (True, 1024)]
+# Hymba-1.5B's prefill (B 4, 25 / 5 heads, S 2,048, D 64): its full and
+# windowed layers
+FLASH_HYMBA = (4, 25, 5, 2048, 64)
+FLASH_HYMBA_MASKS = [(True, None), (True, 1024)]
 # (b, kv, g, pages, page_size, max_pages, d); the last is the engine's
 PAGED_CASES = [(2, 4, 2, 16, 16, 4, 64), (3, 2, 4, 32, 8, 8, 128),
                (1, 1, 8, 8, 16, 2, 64), (1, 8, 2, 512, 16, 96, 128)]
+# the split's edges, lens given per sequence: lens 0, the last position of
+# a split (63) and the first of the next (64), one or two full splits and
+# a ragged tail, tables far longer than the context (empty splits), page
+# size 8, G 16 at D 256 and G 1 at D 32
+PAGED_EDGE = [((3, 8, 2, 64, 16, 8, 128), (0, 63, 64)),
+              ((2, 8, 2, 64, 16, 8, 128), (127, 100)),
+              ((2, 4, 4, 256, 16, 96, 128), (150, 1535)),
+              ((1, 2, 8, 512, 16, 4000, 64), (700,)),
+              ((2, 2, 2, 64, 8, 40, 64), (71, 200)),
+              ((1, 1, 16, 16, 16, 8, 256), (77,)),
+              ((2, 4, 1, 32, 16, 12, 32), (191, 5))]
 
 
 def within(got: torch.Tensor, want: torch.Tensor, tol: float) -> tuple:
@@ -632,12 +666,13 @@ def flash_case(rng, b, h, kv, s, d, dtype, dev):
                  for shape in ((b, h, s, d), (b, kv, s, d), (b, kv, s, d)))
 
 
-def paged_case(rng, b, kv, g, pages, ps, mp, d, dtype, dev):
+def paged_case(rng, b, kv, g, pages, ps, mp, d, dtype, dev, lens=None):
     q = randn(rng, (b, kv * g, d), dtype, dev)
     kp = randn(rng, (pages, ps, kv, d), dtype, dev)
     vp = randn(rng, (pages, ps, kv, d), dtype, dev)
     tables = rng.integers(0, pages, (b, mp)).astype(np.int32)
-    lens = rng.integers(1, mp * ps, (b,)).astype(np.int32)
+    lens = (rng.integers(1, mp * ps, (b,)) if lens is None
+            else np.array(lens)).astype(np.int32)
     return (q, kp, vp, torch.from_numpy(tables).to(dev),
             torch.from_numpy(lens).to(dev))
 
@@ -645,26 +680,44 @@ def paged_case(rng, b, kv, g, pages, ps, mp, d, dtype, dev):
 def phase_attention_kernels(dev) -> dict:
     rng = np.random.default_rng(5)
     out = {}
+
+    def flash(dtype, shape, masks):
+        for causal, window in masks:
+            q, k, v = flash_case(rng, *shape, dtype, dev)
+            got = flash_kernel.flash_attention_fwd(
+                q, k, v, causal=causal, window=window)
+            want = attention_ref(q, k, v, causal=causal, window=window)
+            err, ok = within(got, want, TOL[dtype])
+            out[f"flash_{dname}_{'x'.join(map(str, shape))}"
+                f"_causal{int(causal)}_window{window}"] = {
+                    "max_abs_err": err, "ok": ok,
+                    "variant": flash_kernel.variant(dtype, shape[4])}
+            del q, k, v, got, want
+
+    def paged(dtype, shape, lens=None):
+        args = paged_case(rng, *shape, dtype, dev, lens)
+        err, ok = within(paged_kernel.paged_attention_decode(*args),
+                         paged_attention_ref(*args), TOL[dtype])
+        name = f"paged_{dname}_{'x'.join(map(str, shape))}"
+        out[name + ("" if lens is None else
+                    f"_lens{'-'.join(map(str, lens))}")] = {
+            "max_abs_err": err, "ok": ok,
+            "splits": paged_kernel.split_plan(shape[5], shape[4])}
+
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         for shape in FLASH_CASES:
-            masks = FLASH_MASKS if shape[3] < 1000 else FLASH_MASKS[:1]
-            for causal, window in masks:
-                q, k, v = flash_case(rng, *shape, dtype, dev)
-                got = flash_kernel.flash_attention_fwd(
-                    q, k, v, causal=causal, window=window)
-                want = attention_ref(q, k, v, causal=causal, window=window)
-                err, ok = within(got, want, TOL[dtype])
-                out[f"flash_{dname}_{'x'.join(map(str, shape))}"
-                    f"_causal{int(causal)}_window{window}"] = {
-                        "max_abs_err": err, "ok": ok}
+            flash(dtype, shape,
+                  FLASH_MASKS if shape[3] < 1000 else FLASH_MASKS[:1])
+        for shape in FLASH_EDGE:
+            flash(dtype, shape, FLASH_EDGE_MASKS)
+        flash(dtype, FLASH_HYMBA, FLASH_HYMBA_MASKS)
         for shape in PAGED_CASES:
-            args = paged_case(rng, *shape, dtype, dev)
-            err, ok = within(paged_kernel.paged_attention_decode(*args),
-                             paged_attention_ref(*args), TOL[dtype])
-            out[f"paged_{dname}_{'x'.join(map(str, shape))}"] = {
-                "max_abs_err": err, "ok": ok}
+            paged(dtype, shape)
+        for shape, lens in PAGED_EDGE:
+            paged(dtype, shape, lens)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     for name, r in out.items():
         check(r["ok"], f"phase 5 {name}: kernel within tolerance of plain")
     return out
@@ -864,6 +917,7 @@ def phase_serving_main(dev: str = "cuda",
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launched = {**attention_launches(), **kernel.launches}
+        variants = dict(flash_kernel.variant_launches)
     out = {
         "model": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
         "params": sum(p.numel() for p in model.parameters()),
@@ -880,6 +934,7 @@ def phase_serving_main(dev: str = "cuda",
                        for p in (eng.hbm, eng.host)},
         "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
         "launches": launched, "expected_launches": expected,
+        "flash_variants": variants,
         "nonfinite_logits": int(nonfinite), "stats": stats}
     check(stats["done"] == n_requests and all(
         len(r.out_tokens) == SERVE_NEW_TOKENS for r in eng.done),
@@ -888,6 +943,8 @@ def phase_serving_main(dev: str = "cuda",
           "phase 7: tier migrations fired")
     check(launched["flash_attention"] == expected["flash_attention"],
           "phase 7: one flash launch per layer of each prefill")
+    check(sum(variants.values()) == launched["flash_attention"],
+          "phase 7: every flash launch went to one of its two kernels")
     check(launched["paged_attention"] == expected["paged_attention"],
           "phase 7: one paged launch per layer of each decode step")
     check(launched["bloom_probe"] == launched["bloom_probe_pairs"] == 0,
@@ -971,7 +1028,8 @@ def attention_bound(name: str, call) -> tuple:
     return nbytes / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS_PER_S
 
 
-def phase_attention_captured(rec: AttentionRecorder, launched: dict) -> list:
+def phase_attention_captured(rec: AttentionRecorder, launched: dict,
+                             flash_variants: dict) -> list:
     gqa = sdpa_gqa()
     dev_ms = device_ms_each({symbol: (fn_k, rec.calls[name])
                             for name, (fn_k, _, symbol, _) in
@@ -992,8 +1050,12 @@ def phase_attention_captured(rec: AttentionRecorder, launched: dict) -> list:
         t_bytes, t_ops = zip(*(attention_bound(name, c) for c in calls))
         if name == "paged_attention":
             sizes = [int(c[4][0]) + 1 for c in calls]
+            extra = {"mean_splits": float(np.mean(
+                [paged_kernel.split_plan(c[3].shape[1], c[1].shape[1])[1]
+                 for c in calls]))}
         else:
             sizes = [c[0].shape[2] for c in calls]
+            extra = {"launches_by_variant": dict(flash_variants)}
         kernels.append({
             "name": name, "route": "cuda",
             "source": str(module.SOURCE.relative_to(ROOT)),
@@ -1010,7 +1072,7 @@ def phase_attention_captured(rec: AttentionRecorder, launched: dict) -> list:
             "device_ms": dev_ms[symbol],
             "timed_calls": len(calls),
             ("mean_context" if name == "paged_attention"
-             else "mean_prompt"): float(np.mean(sizes))})
+             else "mean_prompt"): float(np.mean(sizes)), **extra})
     return kernels
 
 
@@ -1345,6 +1407,7 @@ def phase_model_main(name: str, dev: str = "cuda", keep: int = 3):
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         prefill_launches = model_launches()
+        prefill_variants = dict(flash_kernel.variant_launches)
         del logits
         reset_model_launches()
         t0 = time.perf_counter()
@@ -1366,6 +1429,7 @@ def phase_model_main(name: str, dev: str = "cuda", keep: int = 3):
                     "seconds": prefill_s,
                     "tokens_per_s": MAIN_BATCH * MAIN_PREFILL / prefill_s,
                     "launches": prefill_launches,
+                    "flash_variants": prefill_variants,
                     "windowed_flash": sum(w is not None
                                           for w in rec.windows)},
         "decode": {"batch": MAIN_BATCH, "prompt": MAIN_PROMPT,
@@ -1380,6 +1444,10 @@ def phase_model_main(name: str, dev: str = "cuda", keep: int = 3):
           and sum(prefill_launches.values()) == sum(expected.values()),
           f"phase 11 {name}: one fused scan (and flash) launch per layer of "
           "the prefill, nothing else")
+    check(prefill_variants == {
+              "mma": expected["flash_attention"], "simt": 0},
+          f"phase 11 {name}: every bf16 flash launch of the prefill on the "
+          "tensor-core kernel")
     check(rec.windows == windows,
           f"phase 11 {name}: flash windows on exactly the layers "
           "layer_windows gives one")
@@ -1523,6 +1591,14 @@ def flash_window_ref(q, k, v, window):
     return attention_ref(q, k, v, causal=True, window=window)
 
 
+def flash_simt(q, k, v, window):
+    """The CUDA-core kernel on a call the wrapper gives the tensor-core
+    kernel, timed beside it (counts nothing)."""
+    out = torch.empty_like(q)
+    flash_kernel.launch("simt", q, k, v, out, True, window)
+    return out
+
+
 def flash_library(call, gqa: bool) -> tuple:
     """(fn, args) of scaled_dot_product_attention on one causal flash call,
     its window as a boolean mask made outside the timed call."""
@@ -1578,14 +1654,17 @@ def phase_flash_captured(calls: dict, launched: dict) -> dict:
                                               TOL[dtype])[0])
             del want
         t_bytes, t_ops = zip(*(flash_bound(c) for c in cs))
+        kind = flash_kernel.variant(dtype, cs[0][0].shape[3])
         out[model] = {
             "shape": list(cs[0][0].shape) + [cs[0][1].shape[1]],
-            "dtype": str(dtype).split(".")[1],
+            "dtype": str(dtype).split(".")[1], "variant": kind,
             "windows": [c[3] for c in cs], "launches": launched[model],
             "timed_calls": len(cs), "max_abs_err": worst,
             "ms": cuda_ms(flash_window, cs, 10),
             "device_ms": bracketed_ms(flash_window, cs, 5),
             "plain_ms": cuda_ms(flash_window_ref, cs, 2),
+            "simt_ms": (cuda_ms(flash_simt, cs, 3) if kind != "simt"
+                        else None),
             "library_ms": cuda_ms(lib[0][0], [a for _, a in lib], 10),
             "library_max_abs_err": lib_worst,
             "bound_ms": 1e3 * float(np.mean(np.maximum(t_bytes, t_ops))),
@@ -1596,7 +1675,7 @@ def phase_flash_captured(calls: dict, launched: dict) -> dict:
     return out
 
 
-def merge_flash(kernels: list, by_model: dict) -> None:
+def merge_flash(kernels: list, by_model: dict, variants: dict) -> None:
     """Give phase 8's flash row (the serving engine's Qwen3-1.7B calls) a
     ``by_model`` entry per model, phase 12's beside it; its launches count
     every main path the kernel ran on.  No-op without phase 8's row."""
@@ -1608,6 +1687,9 @@ def merge_flash(kernels: list, by_model: dict) -> None:
                     "device_ms", "plain_ms", "library_ms", "bound_ms",
                     "bound_by", "mean_prompt")}, **by_model}
             row["launches"] += sum(m["launches"] for m in by_model.values())
+            for v in variants.values():
+                for kind, n in v.items():
+                    row["launches_by_variant"][kind] += n
 
 
 def timings(card: str, kernels: list) -> dict:
@@ -1670,7 +1752,8 @@ def main() -> int:
         emit(phase7=serve_out, card=card)
     if 8 in phases:
         attention = phase_attention_captured(serve_rec,
-                                             serve_out["launches"])
+                                             serve_out["launches"],
+                                             serve_out["flash_variants"])
         emit(phase8=timings(card, attention))
         kernels += attention
     if 9 in phases:
@@ -1693,7 +1776,9 @@ def main() -> int:
                       for m, o in model_out.items()})
         emit(phase12=timings(card, scans), phase12_flash=flash_by_model)
         kernels += scans
-        merge_flash(kernels, flash_by_model)
+        merge_flash(kernels, flash_by_model,
+                    {m: o["prefill"]["flash_variants"]
+                     for m, o in model_out.items()})
     if 11 in phases:
         emit(phase11_busy=phase_busy_share(model_out), card=card)
     if phases != set(ALL_PHASES):

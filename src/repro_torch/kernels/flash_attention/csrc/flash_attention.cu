@@ -18,41 +18,101 @@
 // of one problem: row r = qp * G + g.  The TPU kernel grids over
 // (batch, kv head, q block, k block) with the k blocks sequential and the
 // online softmax carried in VMEM scratch; it asserts that the sequence is a
-// multiple of its 256-row blocks.  Here one block of 128 threads takes 32
-// folded rows of one (batch, kv head) and loops over the key tiles itself,
-// 32 keys a tile, from the first tile the window can see to the last one
-// the causal mask lets through; tiles past that contribute exactly 0 and
-// are skipped.  Rows and keys past the end are masked in the kernel, so
-// any Sq and Skv work (the engine's prompts have any length).
+// multiple of its 256-row blocks.  Here a block takes a run of folded rows
+// of one (batch, kv head) and loops over the key tiles itself, from the
+// first tile the window can see to the last one the causal mask lets
+// through; tiles past that contribute exactly 0 and are skipped.  Rows and
+// keys past the end are masked in the kernel, so any Sq and Skv work (the
+// engine's prompts have any length).
 //
-// Per tile, K and V go to shared memory as fp32 (K rows padded by one word
-// so the 32 lanes read 32 banks).  Warp w owns rows w, w + 4, ..., w + 28
-// and lane c owns key c of the tile: a lane computes the 8 scores of its
-// key, the row max and sum are warp shuffles, and P.V reads each weight
-// from its lane with a shuffle while each lane accumulates D / 32 columns
-// of its 8 rows in registers.
+// What bounds it: operations.  A prefill of S positions does 4 * S^2 * H *
+// D flops (half that under the causal mask) on 2 * S * (H + KV) * D values
+// read or written: hundreds of flops per byte, above both the fp32 CUDA
+// cores' ~20 and the bf16 tensor cores' ~295 per byte of HBM.
+// Two kernels, chosen by the wrapper before the launch:
 //
-// What bounds it: operations.  A causal prefill of S positions does about
-// 2 * S^2 * H * D flops on 4 * S * (H + 2 KV) * D bytes, far above the
-// card's ~20 flops per byte of fp32 CUDA-core work.  This first kernel
-// runs on the CUDA cores in fp32, without tensor cores (mma / wgmma), TMA
-// or a pipelined ring of tiles: that is later work.
+// bf16, D a multiple of 16 up to 256 (flash_fwd_bf16_wgmma_kernel): on the
+// tensor cores, by warpgroup.  A block is one warpgroup (4 warps) and takes
+// 64 folded rows, walking the keys 64 a tile.  Q (64 x D) and a two-stage
+// ring of K and V tiles (64 x D each) sit in shared memory as column blocks
+// of 64 x 64, rows of 128 bytes with each 16-byte chunk at chunk ^ (row %
+// 8): the layout of wgmma's 128-byte swizzle, the blocks on 1,024-byte
+// boundaries.  cp.async fills them (16 bytes a thread, rows and columns
+// past the end zero-filled; a proxy fence before the barrier hands them to
+// the tensor cores): tile t + 1 is requested right after the one barrier
+// of tile t and lands while tile t computes.  S = Q.K^T is D / 16
+// m64n64k16 wgmma products with both operands read from shared memory
+// through descriptors (K-major; a k-step is 32 bytes on inside a 128-byte
+// row, 8 KB on to the next column block).  O += P.V is 4 m64n64k16
+// products per 64 columns of D, with P from registers, rounded to bf16
+// from the S accumulators (as the reference's sdpa casts its weights to
+// v's dtype; two n-tiles of accumulators are one k-step's A fragment), and
+// V read MN-major (8-row groups 1,024 bytes apart).  The online softmax
+// stays in registers in fp32: the max in log2 units, each weight one
+// ex2.approx of fma(score, log2(e) / sqrt(D), -max); a row's max and sum
+// are shuffles across the 4 lanes that hold it.  Masks apply only on tiles
+// that cut the block's rows, and blocks launch latest rows (most tiles)
+// first.  D below the instantiated width (64, 128, 256) is padded with
+// zero columns.  A wrong descriptor gives wrong sums, not a fault, so the
+// card run checks every (D, G, mask) the models use, and more, against
+// the plain version.  Not yet done: a producer warp with TMA and mbarriers,
+// and overlapping one tile's softmax with the next tile's products.
 //
-// The launcher allocates nothing and does not synchronise; it launches on
-// the caller's stream and returns cudaGetLastError().
+// fp32, or bf16 with another D (flash_fwd_kernel): fp32 arithmetic on the
+// CUDA cores, without TF32.  A block of 128 threads takes 64 folded rows
+// and walks the keys 32 a tile.  Q (64 x D) and a two-stage ring of K and
+// V tiles sit in shared memory as fp32, rows padded by 4 words; fp32 rows
+// with D % 4 == 0 come by cp.async (tile t + 1 lands while tile t
+// computes), others are loaded and converted a value at a time.  The
+// threads form 16 row groups x 8 column groups, and a thread holds a
+// register micro-tile of 4 rows x 4 keys of S and of 4 rows x D / 8
+// columns of O, so each float4 it reads from shared memory feeds 4 to 16
+// FMAs: S from float4s of 4 Q rows and 4 K rows a step, P through shared
+// memory, O from float4s of P and of V rows.  The online softmax stays in
+// registers; a row's max and sum are shuffles over its 8 lanes.
+//
+// The launchers allocate nothing and do not synchronise; they launch on
+// the caller's stream and return cudaGetLastError().
 
 #include <cmath>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerWarp = 8;
-constexpr int kRows = kWarps * kRowsPerWarp;   // folded q rows per block
-constexpr int kTile = 32;                      // keys per tile: one a lane
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, or 16 zero bytes when !ok (src not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------
+// fp32 arithmetic on the CUDA cores
+// ---------------------------------------------------------------------
+namespace cc {
+
+constexpr int kThreads = 128;   // 16 row groups x 8 column groups
+constexpr int kRows = 64;       // folded q rows a block: 4 a row group
+constexpr int kKeys = 32;       // keys a tile: 4 a column group
+constexpr int kPad = 4;         // floats after each shared row
+constexpr int kPs = kKeys + kPad;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -64,165 +124,261 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// ROWS rows into dst [ROWS][KD + kPad] as fp32: row r from row_of(r)
+// (nullptr past the end: zeros), columns past d zero.  vec (fp32, d % 4 ==
+// 0, 16-byte aligned rows): cp.async, landing by the next wait; otherwise
+// loaded and converted a value at a time, visible after the next barrier.
+template <typename T, int KD, int ROWS, typename RowOf>
+__device__ __forceinline__ void load_rows(float* dst, RowOf row_of, int d,
+                                          bool vec, const T* any) {
+  constexpr int kS = KD + kPad;
+  const int tid = threadIdx.x;
+  if constexpr (std::is_same<T, float>::value) {
+    if (vec) {
+      for (int e = tid; e < ROWS * KD / 4; e += kThreads) {
+        const int r = e / (KD / 4);
+        const int c = (e - r * (KD / 4)) * 4;
+        const T* src = row_of(r);
+        const bool ok = src != nullptr && c < d;
+        cp_async16(dst + r * kS + c, ok ? src + c : any, ok);
+      }
+      return;
+    }
+  }
+  for (int e = tid; e < ROWS * KD; e += kThreads) {
+    const int r = e / KD;
+    const int i = e - r * KD;
+    const T* src = row_of(r);
+    dst[r * kS + i] = src != nullptr && i < d ? to_f(src[i]) : 0.f;
+  }
 }
 
-// ND = columns of D a lane accumulates: D <= 32 * ND.
-template <typename T, int ND>
+// KD: the instantiated head dim (d <= KD; columns past d are zero in
+// shared memory and never stored).  Thread (rg, cg) = (tid / 8, tid % 8)
+// holds rows 4 rg .. 4 rg + 3 of the block; of S, keys cg + 8 j of the
+// tile (so the 8 lanes of a row group read 8 K rows on 32 banks); of O,
+// columns 4 cg + 32 c .. + 3 (so they read 128 contiguous bytes of a V
+// row).  A row's max and sum are shuffles over its 8 lanes.
+template <typename T, int KD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, int h,
                  int kvh, int sq, int skv, int d, int causal, int window,
-                 float scale) {
-  extern __shared__ float smem[];
-  float* q_s = smem;                     // [kRows][d]
-  float* k_s = q_s + kRows * d;          // [kTile][d + 1]
-  float* v_s = k_s + kTile * (d + 1);    // [kTile][d]
+                 int vec, float scale) {
+  constexpr int kS = KD + kPad;        // shared row stride, floats
+  constexpr int kC = KD / 32;          // float4 columns of O a thread
+  extern __shared__ __align__(16) float cc_smem[];
+  float* q_s = cc_smem;                // [kRows][kS]
+  float* kv_s = q_s + kRows * kS;      // [2][K, V][kKeys][kS]
+  float* p_s = kv_s + 4 * kKeys * kS;  // [kRows][kPs]
 
   const int g = h / kvh;
-  const int r0 = blockIdx.x * kRows;
+  const int n_rows = sq * g;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * kRows;   // latest first
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_rows = sq * g;
+  const int rg = tid >> 3;
+  const int cg = tid & 7;
   const long long head0 = static_cast<long long>(b) * h + hk * g;
-
-  for (int e = tid; e < kRows * d; e += kThreads) {
-    const int r = e / d;
-    const int i = e - r * d;
-    const int rr = r0 + r;
-    float x = 0.f;
-    if (rr < n_rows) {
-      const int pos = rr / g;
-      x = to_f(q[((head0 + rr % g) * sq + pos) * d + i]);
-    }
-    q_s[e] = x;
-  }
-
-  int qp[kRowsPerWarp];
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][ND];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    qp[r] = (r0 + warp + kWarps * r) / g;
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int j = 0; j < ND; ++j) acc[r][j] = 0.f;
-  }
+  const long long kv0 = (static_cast<long long>(b) * kvh + hk) * skv * d;
+  const T* kb = k + kv0;
+  const T* vb = v + kv0;
 
   // keys the block's rows can see
   const int q_lo = r0 / g;
   const int q_hi = (min(r0 + kRows, n_rows) - 1) / g;
   const int k_end = causal ? min(skv, q_hi + 1) : skv;
-  int k_beg = window > 0 ? max(0, q_lo - window + 1) : 0;
-  k_beg -= k_beg % kTile;
-  const long long kv0 = (static_cast<long long>(b) * kvh + hk) * skv * d;
+  const int k_beg = window > 0 ? max(0, q_lo - window + 1) : 0;
+  const int n_tiles = k_end > k_beg ? (k_end - k_beg + kKeys - 1) / kKeys
+                                    : 0;
 
-  for (int k0 = k_beg; k0 < k_end; k0 += kTile) {
-    __syncthreads();                     // the last tile is consumed
-    for (int e = tid; e < kTile * d; e += kThreads) {
-      const int c = e / d;
-      const int i = e - c * d;
-      float kx = 0.f, vx = 0.f;
-      if (k0 + c < skv) {
-        const long long off = kv0 + static_cast<long long>(k0 + c) * d + i;
-        kx = to_f(k[off]);
-        vx = to_f(v[off]);
+  load_rows<T, KD, kRows>(
+      q_s,
+      [&](int r) -> const T* {
+        const int rr = r0 + r;
+        return rr < n_rows ? q + ((head0 + rr % g) * sq + rr / g) * d
+                           : nullptr;
+      },
+      d, vec, q);
+  auto load_kv = [&](int t) {
+    const int k0 = k_beg + t * kKeys;
+    float* ks = kv_s + (t & 1) * 2 * kKeys * kS;
+    load_rows<T, KD, kKeys>(
+        ks,
+        [&](int n) -> const T* {
+          return k0 + n < skv ? kb + static_cast<long long>(k0 + n) * d
+                              : nullptr;
+        },
+        d, vec, q);
+    load_rows<T, KD, kKeys>(
+        ks + kKeys * kS,
+        [&](int n) -> const T* {
+          return k0 + n < skv ? vb + static_cast<long long>(k0 + n) * d
+                              : nullptr;
+        },
+        d, vec, q);
+  };
+  if (n_tiles > 0) load_kv(0);
+  cp_async_commit();
+
+  int qp[4];
+  float m[4], l[4], o[4][kC][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    qp[i] = (r0 + rg * 4 + i) / g;
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][c][e] = 0.f;
+  }
+  const int d4 = (d + 3) & ~3;         // columns holding data
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();                   // tile t is in; tile t - 1's stage
+                                       // and p_s are free
+    if (t + 1 < n_tiles) load_kv(t + 1);
+    cp_async_commit();
+    const int k0 = k_beg + t * kKeys;
+    const float* ks = kv_s + (t & 1) * 2 * kKeys * kS;
+    const float* vs = ks + kKeys * kS;
+
+    // S: 4 rows x 4 keys, 4 columns of D a step
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < d4; c += 4) {
+      float4 qv[4], kx[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(q_s + (rg * 4 + i) * kS + c);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kx[j] = *reinterpret_cast<const float4*>(ks + (cg + 8 * j) * kS + c);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float a = s[i][j];
+          a = fmaf(qv[i].x, kx[j].x, a);
+          a = fmaf(qv[i].y, kx[j].y, a);
+          a = fmaf(qv[i].z, kx[j].z, a);
+          s[i][j] = fmaf(qv[i].w, kx[j].w, a);
+        }
+    }
+
+    // mask, online softmax, P to shared memory
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kp = k0 + cg + 8 * j;
+        const bool seen = kp < skv && (!causal || kp <= qp[i]) &&
+                          (window <= 0 || kp > qp[i] - window);
+        s[i][j] = seen ? s[i][j] * scale : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
       }
-      k_s[c * (d + 1) + i] = kx;
-      v_s[e] = vx;
+#pragma unroll
+      for (int o_ = 1; o_ < 8; o_ <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o_));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= alpha;
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[i][c][e] *= alpha;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        l[i] += p;
+        p_s[(rg * 4 + i) * kPs + cg + 8 * j] = p;
+      }
     }
     __syncthreads();
 
-    // scores of this lane's key against the warp's rows
-    float s[kRowsPerWarp];
+    // O += P . V: 4 rows x 4 kC columns, 4 keys a step
+#pragma unroll 2
+    for (int n = 0; n < kKeys; n += 4) {
+      float4 pv[4];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) s[r] = 0.f;
-    const float* k_row = k_s + lane * (d + 1);
-    for (int i = 0; i < d; ++i) {
-      const float kx = k_row[i];
+      for (int i = 0; i < 4; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(p_s + (rg * 4 + i) * kPs + n);
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r)
-        s[r] += q_s[(warp + kWarps * r) * d + i] * kx;
-    }
-    const int kp = k0 + lane;
+      for (int nn = 0; nn < 4; ++nn) {
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const bool seen = kp < skv && (!causal || kp <= qp[r]) &&
-                        (window <= 0 || kp > qp[r] - window);
-      const float x = seen ? s[r] * scale : kNegInf;
-      const float m_new = fmaxf(m[r], warp_max(x));
-      const float p = expf(x - m_new);
-      const float alpha = expf(m[r] - m_new);
-      l[r] = alpha * l[r] + warp_sum(p);
-      m[r] = m_new;
-      s[r] = p;
+        for (int c = 0; c < kC; ++c) {
+          const float4 vv = *reinterpret_cast<const float4*>(
+              vs + (n + nn) * kS + cg * 4 + 32 * c);
 #pragma unroll
-      for (int j = 0; j < ND; ++j) acc[r][j] *= alpha;
-    }
-
-    // P.V: weight (row r, key c) lives in lane c
-    for (int c = 0; c < kTile; ++c) {
-      const float* v_row = v_s + c * d;
-      float vx[ND];
-#pragma unroll
-      for (int j = 0; j < ND; ++j) {
-        const int i = lane + 32 * j;
-        vx[j] = i < d ? v_row[i] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float p = __shfl_sync(0xffffffffu, s[r], c);
-#pragma unroll
-        for (int j = 0; j < ND; ++j) acc[r][j] += p * vx[j];
+          for (int i = 0; i < 4; ++i) {
+            const float p = nn == 0 ? pv[i].x : nn == 1 ? pv[i].y
+                          : nn == 2 ? pv[i].z : pv[i].w;
+            o[i][c][0] = fmaf(p, vv.x, o[i][c][0]);
+            o[i][c][1] = fmaf(p, vv.y, o[i][c][1]);
+            o[i][c][2] = fmaf(p, vv.z, o[i][c][2]);
+            o[i][c][3] = fmaf(p, vv.w, o[i][c][3]);
+          }
+        }
       }
     }
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int rr = r0 + warp + kWarps * r;
-    if (rr >= n_rows) continue;
-    const long long off = ((head0 + rr % g) * sq + rr / g) * d;
-    const float den = fmaxf(l[r], 1e-30f);
+  for (int i = 0; i < 4; ++i) {
+    float sum = l[i];
 #pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      const int i = lane + 32 * j;
-      if (i < d) store(out + off + i, acc[r][j] / den);
-    }
+    for (int o_ = 1; o_ < 8; o_ <<= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o_);
+    const int rr = r0 + rg * 4 + i;
+    if (rr >= n_rows) continue;
+    const float den = fmaxf(sum, 1e-30f);
+    T* dst = out + ((head0 + rr % g) * sq + rr / g) * d;
+#pragma unroll
+    for (int c = 0; c < kC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = cg * 4 + 32 * c + e;
+        if (col < d) store(dst + col, o[i][c][e] / den);
+      }
   }
 }
 
-template <typename T, int ND>
+template <typename T, int KD>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
            int h, int kvh, int sq, int skv, int d, int causal, int window,
            cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-                      (static_cast<size_t>(kRows) * d + kTile * (d + 1) +
-                       static_cast<size_t>(kTile) * d);
-  auto kern = flash_fwd_kernel<T, ND>;
+  constexpr int kS = KD + kPad;
+  const size_t smem =
+      sizeof(float) * (kRows * kS + 4 * kKeys * kS + kRows * kPs);
+  auto kern = flash_fwd_kernel<T, KD>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  const uintptr_t align = reinterpret_cast<uintptr_t>(q) |
+                          reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v);
+  const int vec = std::is_same<T, float>::value && d % 4 == 0 &&
+                  align % 16 == 0;
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
   const int g = h / kvh;
   const dim3 grid((sq * g + kRows - 1) / kRows, kvh, b);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), h, kvh, sq, skv, d,
-      causal, window, scale);
+      causal, window, vec, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -231,13 +387,346 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int b,
              int h, int kvh, int sq, int skv, int d, int causal, int window,
              cudaStream_t s) {
   if (d <= 32)
-    return launch<T, 1>(q, k, v, out, b, h, kvh, sq, skv, d, causal, window, s);
+    return launch<T, 32>(q, k, v, out, b, h, kvh, sq, skv, d, causal, window,
+                         s);
   if (d <= 64)
-    return launch<T, 2>(q, k, v, out, b, h, kvh, sq, skv, d, causal, window, s);
+    return launch<T, 64>(q, k, v, out, b, h, kvh, sq, skv, d, causal, window,
+                         s);
   if (d <= 128)
-    return launch<T, 4>(q, k, v, out, b, h, kvh, sq, skv, d, causal, window, s);
-  return launch<T, 8>(q, k, v, out, b, h, kvh, sq, skv, d, causal, window, s);
+    return launch<T, 128>(q, k, v, out, b, h, kvh, sq, skv, d, causal,
+                          window, s);
+  return launch<T, 256>(q, k, v, out, b, h, kvh, sq, skv, d, causal, window,
+                        s);
 }
+
+}  // namespace cc
+
+// ---------------------------------------------------------------------
+// bf16 on the tensor cores (wgmma)
+// ---------------------------------------------------------------------
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 128;   // one warpgroup
+constexpr int kRows = 64;       // folded q rows a block: one m64 tile
+constexpr int kKeys = 64;       // keys a tile
+constexpr int kBlock = 64 * 64; // elements of a [64][64] swizzled block
+constexpr float kNegInf = -1e30f;
+
+// Element offset of 16-byte chunk c of row r (0..63) in a tile of 64 rows
+// stored as column blocks of [64 rows][64 elements]: each block rows of
+// 128 bytes, the chunk at (c % 8) ^ (r % 8), the layout of wgmma's 128-byte
+// swizzle when the block starts on 1,024 bytes.
+__device__ __forceinline__ int swz(int r, int c) {
+  return (c >> 3) * kBlock + r * 64 + (((c ^ r) & 7) << 3);
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets (16-byte units).
+__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo,
+                                         uint32_t sbo) {
+  const uint64_t a = smem_addr(p);
+  return ((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x in one MUFU instruction (2^-huge = 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving reads or writes of accumulators across
+// the asynchronous products
+__device__ __forceinline__ void pin(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A . B, m64n64k16, A and B from shared memory, both K-major
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t da,
+                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A . B, m64n64k16, A from registers (the mma.m16n8k16 A layout per
+// warp), B from shared memory MN-major
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// KD: the instantiated head dim (a multiple of 64; d <= KD, d % 16 == 0,
+// columns past d zero in shared memory and never stored).  Accumulators
+// follow wgmma's m64nN layout: warp w holds rows 16 w + gid and
+// 16 w + gid + 8, d[4 j + e] the columns 8 j + 2 tig + (e & 1).
+template <int KD>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_bf16_wgmma_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            bf16* __restrict__ out, int h, int kvh, int sq,
+                            int skv, int d, int causal, int window,
+                            float scale_log2) {
+  constexpr int kChunks = KD / 8;
+  constexpr int kTile = kKeys * KD;
+  constexpr int kCB = KD / 64;                   // column blocks
+  extern __shared__ __align__(128) unsigned char wg_smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(wg_smem) + 1023) & ~uintptr_t{1023});
+  bf16* kv_s = q_s + kRows * KD;                 // [2][K, V][kTile]
+
+  const int g = h / kvh;
+  const int n_rows = sq * g;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * kRows;   // latest first
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const long long head0 = static_cast<long long>(b) * h + hk * g;
+  const long long kv0 = (static_cast<long long>(b) * kvh + hk) * skv * d;
+  const bf16* kb = k + kv0;
+  const bf16* vb = v + kv0;
+
+  const int q_lo = r0 / g;
+  const int q_hi = (min(r0 + kRows, n_rows) - 1) / g;
+  const int k_end = causal ? min(skv, q_hi + 1) : skv;
+  const int k_beg = window > 0 ? max(0, q_lo - window + 1) : 0;
+  const int n_tiles = k_end > k_beg ? (k_end - k_beg + kKeys - 1) / kKeys
+                                    : 0;
+
+  for (int e = tid; e < kRows * kChunks; e += kThreads) {
+    const int r = e / kChunks;
+    const int c = e - r * kChunks;
+    const int rr = r0 + r;
+    const bool ok = rr < n_rows && c * 8 < d;
+    const bf16* src =
+        ok ? q + ((head0 + rr % g) * sq + rr / g) * d + c * 8 : q;
+    cp_async16(q_s + swz(r, c), src, ok);
+  }
+  auto load_kv = [&](int t) {
+    const int k0 = k_beg + t * kKeys;
+    bf16* ks = kv_s + (t & 1) * 2 * kTile;
+    bf16* vs = ks + kTile;
+    for (int e = tid; e < kKeys * kChunks; e += kThreads) {
+      const int n = e / kChunks;
+      const int c = e - n * kChunks;
+      const bool ok = k0 + n < skv && c * 8 < d;
+      const long long off =
+          ok ? static_cast<long long>(k0 + n) * d + c * 8 : 0;
+      cp_async16(ks + swz(n, c), kb + off, ok);
+      cp_async16(vs + swz(n, c), vb + off, ok);
+    }
+  };
+  if (n_tiles > 0) load_kv(0);
+  cp_async_commit();
+
+  const int row_a = r0 + warp * 16 + gid;
+  const int qp[2] = {row_a / g, (row_a + 8) / g};
+
+  float o[kCB][32];
+#pragma unroll
+  for (int cb = 0; cb < kCB; ++cb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[cb][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+  float s[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (t + 1 < n_tiles) load_kv(t + 1);
+    cp_async_commit();
+    const int k0 = k_beg + t * kKeys;
+    const bf16* ks = kv_s + (t & 1) * 2 * kTile;
+    const bf16* vs = ks + kTile;
+
+    // S = Q . K^T: KD / 16 k-steps, 32 bytes apart in a 128-byte row,
+    // the next column block 8 KB on
+    fence();
+    pin(s);
+#pragma unroll
+    for (int kc = 0; kc < KD / 16; ++kc) {
+      const int off = (kc >> 2) * kBlock + (kc & 3) * 16;
+      mma_ss(s, desc(q_s + off, 16, 1024), desc(ks + off, 16, 1024),
+             kc > 0);
+    }
+    commit();
+    wait_all();
+    pin(s);
+
+    // mask where the tile cuts the block's rows; rescale by the new max,
+    // kept in log2 units
+    const bool whole = k0 + kKeys <= skv &&
+                       (!causal || k0 + kKeys - 1 <= q_lo) &&
+                       (window <= 0 || k0 > q_hi - window);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hf = (i >> 1) & 1;
+      if (!whole) {
+        const int kp = k0 + (i >> 2) * 8 + tig * 2 + (i & 1);
+        const int p = qp[hf];
+        const bool seen = kp < skv && (!causal || kp <= p) &&
+                          (window <= 0 || kp > p - window);
+        s[i] = seen ? s[i] : kNegInf;
+      }
+      mx[hf] = fmaxf(mx[hf], s[i]);
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const float mn = fmaxf(m[hf], quad_max(mx[hf]) * scale_log2);
+      const float alpha = ex2(m[hf] - mn);
+      m[hf] = mn;
+      l[hf] *= alpha;
+#pragma unroll
+      for (int cb = 0; cb < kCB; ++cb)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          o[cb][4 * j + 2 * hf] *= alpha;
+          o[cb][4 * j + 2 * hf + 1] *= alpha;
+        }
+    }
+    // P = 2^(s * scale - m), rounded to bf16: n-tiles 2 kk and 2 kk + 1
+    // are the A fragment of key step kk
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float p[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        p[e] = ex2(fmaf(s[8 * kk + e], scale_log2, -m[(e >> 1) & 1]));
+      l[0] += p[0] + p[1] + p[4] + p[5];
+      l[1] += p[2] + p[3] + p[6] + p[7];
+      a[kk][0] = pack_bf16(p[0], p[1]);
+      a[kk][1] = pack_bf16(p[2], p[3]);
+      a[kk][2] = pack_bf16(p[4], p[5]);
+      a[kk][3] = pack_bf16(p[6], p[7]);
+    }
+    // O += P . V: per 64-column block, 4 key steps of 16 rows (2 KB on);
+    // V is MN-major, its 8-row groups 1,024 bytes apart (SBO)
+    fence();
+#pragma unroll
+    for (int cb = 0; cb < kCB; ++cb) {
+      pin(o[cb]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mma_rs(o[cb], a[kk], desc(vs + cb * kBlock + kk * 16 * 64, 16, 1024));
+    }
+    commit();
+    wait_all();
+#pragma unroll
+    for (int cb = 0; cb < kCB; ++cb) pin(o[cb]);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const float inv = 1.f / fmaxf(quad_sum(l[hf]), 1e-30f);
+    const int rr = row_a + 8 * hf;
+    if (rr >= n_rows) continue;
+    bf16* dst = out + ((head0 + rr % g) * sq + rr / g) * d;
+#pragma unroll
+    for (int cb = 0; cb < kCB; ++cb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = cb * 64 + j * 8 + tig * 2;
+        if (col < d)
+          *reinterpret_cast<__nv_bfloat162*>(dst + col) =
+              __floats2bfloat162_rn(o[cb][4 * j + 2 * hf] * inv,
+                                    o[cb][4 * j + 2 * hf + 1] * inv);
+      }
+  }
+}
+
+template <int KD>
+int launch(const void* q, const void* k, const void* v, void* out, int b,
+           int h, int kvh, int sq, int skv, int d, int causal, int window,
+           cudaStream_t stream) {
+  // the tiles, and room to start them on 1,024 bytes
+  const size_t smem = sizeof(bf16) * (kRows + 4 * kKeys) * KD + 1024;
+  auto kern = flash_fwd_bf16_wgmma_kernel<KD>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const float scale_log2 = static_cast<float>(
+      1.4426950408889634 / sqrt(static_cast<double>(d)));
+  const int g = h / kvh;
+  const dim3 grid((sq * g + kRows - 1) / kRows, kvh, b);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), h, kvh, sq, skv,
+      d, causal, window, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
 
 }  // namespace
 
@@ -251,8 +740,27 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, out, b, h, kvh, sq, skv, d, causal,
+    return cc::dispatch<float>(q, k, v, out, b, h, kvh, sq, skv, d, causal,
+                               window, s);
+  return cc::dispatch<__nv_bfloat16>(q, k, v, out, b, h, kvh, sq, skv, d,
+                                     causal, window, s);
+}
+
+// bf16 q, k, v and out on the tensor cores.  Needs H % KV == 0, D % 16 == 0,
+// 16 <= D <= 256, Sq, Skv >= 1 and 16-byte aligned pointers (checked by the
+// Python wrapper).  window <= 0 means no window.
+extern "C" int flash_attention_fwd_bf16_wgmma(const void* q, const void* k,
+                                              const void* v, void* out,
+                                              int b, int h, int kvh, int sq,
+                                              int skv, int d, int causal,
+                                              int window, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d <= 64)
+    return wg::launch<64>(q, k, v, out, b, h, kvh, sq, skv, d, causal,
+                          window, s);
+  if (d <= 128)
+    return wg::launch<128>(q, k, v, out, b, h, kvh, sq, skv, d, causal,
                            window, s);
-  return dispatch<__nv_bfloat16>(q, k, v, out, b, h, kvh, sq, skv, d, causal,
-                                 window, s);
+  return wg::launch<256>(q, k, v, out, b, h, kvh, sq, skv, d, causal,
+                         window, s);
 }

@@ -6,7 +6,13 @@ bound with ctypes (``kernels/_build.py``).  The wrapper takes CUDA tensors
 only, checks device, dtype, contiguity and shapes, allocates the output
 with ``torch.empty``, launches on the current stream without
 synchronising, and raises if the launch was refused.  ``launches`` counts
-its kernel launches.
+its kernel launches, ``variant_launches`` the same launches by kernel.
+
+The source holds two kernels, and ``variant`` picks one from the inputs'
+dtype, head dim and alignment before the launch: ``"mma"``, bf16 on the
+tensor cores, for bf16 with D a multiple of 16 up to 256 and 16-byte
+aligned tensors; ``"simt"``, fp32 arithmetic on the CUDA cores (no TF32),
+for fp32 and any other bf16 call.
 """
 from __future__ import annotations
 
@@ -20,16 +26,29 @@ from .. import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-SIGNATURES = {"flash_attention_fwd": [_VP] * 4 + [_I] * 9 + [_VP]}
+SIGNATURES = {"flash_attention_fwd": [_VP] * 4 + [_I] * 9 + [_VP],
+              "flash_attention_fwd_bf16_wgmma": [_VP] * 4 + [_I] * 8 + [_VP]}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 
 launches: Dict[str, int] = {"flash_attention": 0}
+variant_launches: Dict[str, int] = {"mma": 0, "simt": 0}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, variant_launches):
+        for name in counts:
+            counts[name] = 0
+
+
+def variant(dtype: torch.dtype, d: int, aligned: bool = True) -> str:
+    """The kernel a call of head dim ``d`` takes: "mma" (bf16 on the
+    tensor cores) for bf16 with D a multiple of 16 up to 256 when every
+    tensor is 16-byte aligned, else "simt" (fp32 on the CUDA cores)."""
+    if dtype == torch.bfloat16 and d % 16 == 0 and 16 <= d <= MAX_HEAD_DIM \
+            and aligned:
+        return "mma"
+    return "simt"
 
 
 def load() -> ctypes.CDLL:
@@ -71,13 +90,31 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    lib = load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            DTYPES[q.dtype], b, h, kvh, sq, skv, d, int(causal),
-            0 if window is None else int(window), stream)
-    _build.raise_on(err, "flash_attention_fwd")
+    kind = variant(q.dtype, d, all(t.data_ptr() % 16 == 0
+                                   for t in (q, k, v, out)))
+    launch(kind, q, k, v, out, causal, window)
     launches["flash_attention"] += 1
+    variant_launches[kind] += 1
     return out
+
+
+def launch(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           out: torch.Tensor, causal: bool, window: Optional[int]) -> None:
+    """Launch kernel ``kind`` on inputs the wrapper has checked (and
+    ``variant`` allows for "mma"); counts nothing."""
+    b, h, sq, d = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    lib = load()
+    win = 0 if window is None else int(window)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if kind == "mma":
+            err = lib.flash_attention_fwd_bf16_wgmma(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                h, kvh, sq, skv, d, int(causal), win, stream)
+        else:
+            err = lib.flash_attention_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                DTYPES[q.dtype], b, h, kvh, sq, skv, d, int(causal), win,
+                stream)
+    _build.raise_on(err, f"flash_attention_fwd ({kind})")

@@ -13,30 +13,46 @@
 //
 // A position p counts when p <= lens[b] (inclusive).  The TPU kernel walks
 // every page slot and masks with the finite NEG_INF = -1e30, so slots past
-// the context get weight exp(-1e30 - m) = 0 exactly; this kernel stops at
-// position min(lens[b], max_pages * page_size - 1), which gives the same
-// sums.  lens[b] must be >= 0 (position 0 is always valid) and every page
-// index a block reads must lie in [0, P).
+// the context get weight exp(-1e30 - m) = 0 exactly; this kernel reads only
+// positions up to min(lens[b], max_pages * page_size - 1) and gives the
+// others weight 0, which gives the same sums.  lens[b] must be >= 0
+// (position 0 is always valid) and every page index a block reads must lie
+// in [0, P).
 //
 // What bounds it: bytes.  A decode reads (ctx + 1) * D values of K and of V
 // per KV head and does about 4 * G flops per value read, far below the
-// card's ~20 flops per byte of fp32.  The TPU kernel grids over
-// (batch, kv head, page slot) and carries the online softmax in VMEM
-// scratch across the sequential page axis.  Here blocks run in parallel
-// and carry nothing, so one block of 128 threads takes one (batch, kv head)
-// and loops over the sequence itself, 64 positions a round: each warp
-// scores its positions against all G query rows (lanes split D, a shuffle
-// reduction per row), one warp per row updates the running max and sum,
-// and the threads then fold the round's V rows into a [G, D] accumulator
-// in shared memory.  Each thread reads its own block-table entries.  q,
-// K and V may be fp32 or bf16; all arithmetic is fp32.
+// card's ~20 flops per byte of fp32.  To reach the memory rate the reads
+// must come from many SMs with many loads in flight.  The TPU kernel grids
+// over (batch, kv head, page slot) with the online softmax carried across
+// the sequential page axis in VMEM; here blocks run in parallel, so the
+// context is split instead (flash decoding):
 //
-// The design keeps few blocks in flight (B * KV of them, 8 for one
-// Qwen3-1.7B decode), so one SM streams a whole head's context: simple and
-// right first; splitting the sequence across blocks is later work.
+// - The grid is (split, kv head, batch).  A split is a run of whole pages,
+//   at least 64 positions (the wrapper's split_plan); one Qwen3-1.7B
+//   request of ~1,180 positions is 19 splits x 8 heads = 152 blocks.  The
+//   grid is sized from max_pages * page_size, which the host knows: lens
+//   stays on the card and nothing synchronises.
+// - In a block of 4 warps, warp w takes P consecutive positions at a time
+//   (w * P, then + 4 P).  A lane holds E = ceil(D / 32) columns of the
+//   G query rows in registers and loads its E columns of the P K rows and
+//   P V rows at once (one 16-byte load a lane for an fp32 row of D 128:
+//   one warp-wide load a row), so 2 P rows are in flight per warp.  The G
+//   scores of a position are warp shuffle sums; the running max, sum and
+//   the lane's E columns of the [G, D] accumulator stay in registers.
+//   Each block reads its own block-table entries.
+// - The 4 warps' (m, l, acc) are merged once in shared memory and the
+//   block writes its split's partial (m, l, acc[G, D]) to fp32 scratch.  A
+//   split wholly past lens[b] writes m = NEG_INF, l = 0, acc = 0.
+// - One launch: after a __threadfence, each block adds one to its (b,
+//   head)'s arrival counter; the block that arrives last rescales every
+//   split's partial by exp(m - max m), sums them and writes the output,
+//   then resets the counter to 0.  An empty split weighs exactly 0.  The
+//   counters (int32 [B * KV], zero) belong to the wrapper, which makes
+//   them once per device; launches that share them must run on one stream.
 //
-// The launcher allocates nothing and does not synchronise; it launches on
-// the caller's stream and returns cudaGetLastError().
+// q, K and V may be fp32 or bf16; all arithmetic is fp32.  The launcher
+// allocates nothing and does not synchronise; it launches on the caller's
+// stream and returns cudaGetLastError().
 
 #include <cmath>
 
@@ -48,8 +64,6 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 64;       // positions scored per round
-constexpr int kMaxG = 16;        // query rows per KV head
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -62,150 +76,326 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 __device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
 }
 
-template <typename T>
+template <int BYTES> struct Vec;
+template <> struct Vec<2> { using type = uint16_t; };
+template <> struct Vec<4> { using type = uint32_t; };
+template <> struct Vec<8> { using type = uint2; };
+template <> struct Vec<16> { using type = uint4; };
+
+// The lane's E columns [i0, i0 + E) of one row, as fp32.  vec: the row is
+// 32 * E values long and E * sizeof(T)-byte aligned, so a lane's columns
+// come in loads of up to 16 bytes; otherwise one value at a time, columns
+// past d read as 0.
+template <typename T, int E>
+__device__ __forceinline__ void load_lane(const T* __restrict__ row, int i0,
+                                          int d, bool vec, float (&x)[E]) {
+  if (vec) {
+    constexpr int kBytes = E * sizeof(T) < 16 ? E * sizeof(T) : 16;
+    constexpr int kLoads = E * sizeof(T) / kBytes;
+    using V = typename Vec<kBytes>::type;
+    alignas(16) T buf[E];
+    const V* src = reinterpret_cast<const V*>(row + i0);
+#pragma unroll
+    for (int c = 0; c < kLoads; ++c)
+      reinterpret_cast<V*>(buf)[c] = __ldg(src + c);
+#pragma unroll
+    for (int j = 0; j < E; ++j) x[j] = to_f(buf[j]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < E; ++j)
+      x[j] = i0 + j < d ? to_f(row[i0 + j]) : 0.f;
+  }
+}
+
+// E: columns a lane holds (D <= 32 E); GM: the most query rows per KV
+// head this instantiation holds (G <= GM); P: positions a warp loads at
+// once.
+template <typename T, int E, int GM, int P>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     const T* __restrict__ v_pages,
                     const int32_t* __restrict__ tables,
                     const int32_t* __restrict__ lens, int kvh, int g, int d,
-                    int page_size, int max_pages, float scale,
+                    int page_size, int max_pages, int split, int n_splits,
+                    int vec, float scale, float* __restrict__ part_acc,
+                    float* __restrict__ part_ml, int* __restrict__ counters,
                     T* __restrict__ out) {
   extern __shared__ float smem[];
-  float* q_s = smem;                    // [g][d]
-  float* acc_s = q_s + g * d;           // [g][d]
-  float* s_s = acc_s + g * d;           // [g][kChunk] scores, then weights
-  float* m_s = s_s + g * kChunk;        // [g] running max
-  float* l_s = m_s + g;                 // [g] running sum
-  float* alpha_s = l_s + g;             // [g] this round's rescale
-  __shared__ long long off_s[kChunk];   // element offset of each K/V row
+  __shared__ int is_last;
 
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
+  const int sp = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int i0 = lane * E;
   const int gd = g * d;
+  const long long bh = static_cast<long long>(b) * kvh + h;
 
-  const long long q_off = (static_cast<long long>(b) * kvh + h) * gd;
-  for (int e = tid; e < gd; e += kThreads) {
-    q_s[e] = to_f(q[q_off + e]);
-    acc_s[e] = 0.f;
+  // this lane's columns of the G query rows, scaled by 1 / sqrt(D)
+  float qr[GM][E];
+#pragma unroll
+  for (int r = 0; r < GM; ++r) {
+    if (r < g) {
+      load_lane<T, E>(q + (bh * g + r) * d, i0, d, vec, qr[r]);
+#pragma unroll
+      for (int j = 0; j < E; ++j) qr[r][j] *= scale;
+    } else {
+#pragma unroll
+      for (int j = 0; j < E; ++j) qr[r][j] = 0.f;
+    }
   }
-  for (int r = tid; r < g; r += kThreads) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
-  }
+
   const long long cap = static_cast<long long>(max_pages) * page_size;
-  const long long last = min(static_cast<long long>(lens[b]), cap - 1);
-  const int n_tok = static_cast<int>(last + 1);
+  const int last = static_cast<int>(min(static_cast<long long>(lens[b]),
+                                        cap - 1));
+  const int p_beg = sp * split;
+  const int p_end = min(p_beg + split, last + 1);   // <= p_beg: empty
   const int32_t* table = tables + static_cast<long long>(b) * max_pages;
-  __syncthreads();
 
-  for (int c0 = 0; c0 < n_tok; c0 += kChunk) {
-    const int n = min(kChunk, n_tok - c0);
-    // scores: warp w takes positions w, w + kWarps, ... of the round
-    for (int j = warp; j < n; j += kWarps) {
-      const int t = c0 + j;
-      const long long page = table[t / page_size];
-      const long long off =
-          ((page * page_size + t % page_size) * kvh + h) * d;
-      if (lane == 0) off_s[j] = off;
-      float part[kMaxG];
+  float m[GM], l[GM], acc[GM][E];
 #pragma unroll
-      for (int r = 0; r < kMaxG; ++r) part[r] = 0.f;
-      for (int i = lane; i < d; i += 32) {
-        const float kx = to_f(k_pages[off + i]);
+  for (int r = 0; r < GM; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
 #pragma unroll
-        for (int r = 0; r < kMaxG; ++r)
-          if (r < g) part[r] += q_s[r * d + i] * kx;
-      }
-#pragma unroll
-      for (int r = 0; r < kMaxG; ++r) {
-        if (r < g) {
-          const float s = warp_sum(part[r]);
-          if (lane == 0) s_s[r * kChunk + j] = s * scale;
-        }
-      }
-    }
-    __syncthreads();
-    // online softmax: one warp per query row
-    for (int r = warp; r < g; r += kWarps) {
-      float* s_row = s_s + r * kChunk;
-      float mx = kNegInf;
-      for (int j = lane; j < n; j += 32) mx = fmaxf(mx, s_row[j]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int j = lane; j < n; j += 32) {
-        const float p = expf(s_row[j] - m_new);
-        s_row[j] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        l_s[r] = alpha * l_s[r] + sum;
-        m_s[r] = m_new;
-        alpha_s[r] = alpha;
-      }
-    }
-    __syncthreads();
-    // fold the round's V rows into the accumulator
-    for (int e = tid; e < gd; e += kThreads) {
-      const int r = e / d;
-      const int i = e - r * d;
-      const float* p_row = s_s + r * kChunk;
-      float a = acc_s[e] * alpha_s[r];
-      for (int j = 0; j < n; ++j) a += p_row[j] * to_f(v_pages[off_s[j] + i]);
-      acc_s[e] = a;
-    }
-    __syncthreads();
+    for (int j = 0; j < E; ++j) acc[r][j] = 0.f;
   }
-  for (int e = tid; e < gd; e += kThreads)
-    store(out + q_off + e, acc_s[e] / fmaxf(l_s[e / d], 1e-30f));
+
+  for (int p0 = p_beg + warp * P; p0 < p_end; p0 += kWarps * P) {
+    float kx[P][E], vx[P][E];
+#pragma unroll
+    for (int t = 0; t < P; ++t) {
+      const int pos = p0 + t;
+      if (pos < p_end) {
+        const long long row =
+            (static_cast<long long>(table[pos / page_size]) * page_size +
+             pos % page_size) * kvh + h;
+        load_lane<T, E>(k_pages + row * d, i0, d, vec, kx[t]);
+        load_lane<T, E>(v_pages + row * d, i0, d, vec, vx[t]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < E; ++j) kx[t][j] = vx[t][j] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < GM; ++r) {
+      if (r >= g) continue;
+      float s[P];
+      float mx = kNegInf;
+#pragma unroll
+      for (int t = 0; t < P; ++t) {
+        float part = 0.f;
+#pragma unroll
+        for (int j = 0; j < E; ++j) part += qr[r][j] * kx[t][j];
+        s[t] = warp_sum(part);
+        if (p0 + t < p_end) mx = fmaxf(mx, s[t]);
+      }
+      // p0 < p_end, so mx is a real score and alpha wipes the initial
+      // NEG_INF state to exactly 0
+      const float m_new = fmaxf(m[r], mx);
+      const float alpha = expf(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha;
+#pragma unroll
+      for (int j = 0; j < E; ++j) acc[r][j] *= alpha;
+#pragma unroll
+      for (int t = 0; t < P; ++t) {
+        const float p = p0 + t < p_end ? expf(s[t] - m_new) : 0.f;
+        l[r] += p;
+#pragma unroll
+        for (int j = 0; j < E; ++j) acc[r][j] += p * vx[t][j];
+      }
+    }
+  }
+
+  // merge the warps: shared [kWarps][g][d] acc, then [kWarps][g] m and l
+  float* w_acc = smem;
+  float* w_m = w_acc + kWarps * gd;
+  float* w_l = w_m + kWarps * g;
+#pragma unroll
+  for (int r = 0; r < GM; ++r) {
+    if (r >= g) continue;
+#pragma unroll
+    for (int j = 0; j < E; ++j)
+      if (i0 + j < d) w_acc[(warp * g + r) * d + i0 + j] = acc[r][j];
+    if (lane == 0) {
+      w_m[warp * g + r] = m[r];
+      w_l[warp * g + r] = l[r];
+    }
+  }
+  __syncthreads();
+  const long long part = bh * n_splits + sp;
+  for (int e = tid; e < gd; e += kThreads) {
+    const int r = e / d;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, w_m[w * g + r]);
+    float a = 0.f, sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      // a warp with no position has l = 0 and acc = 0
+      const float wt = expf(w_m[w * g + r] - mx);
+      a += wt * w_acc[w * gd + e];
+      sum += wt * w_l[w * g + r];
+    }
+    part_acc[part * gd + e] = a;
+    if (e - r * d == 0) {
+      part_ml[(part * g + r) * 2] = mx;
+      part_ml[(part * g + r) * 2 + 1] = sum;
+    }
+  }
+
+  // the last block of (b, head) to arrive combines the splits
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(counters + bh, 1) == n_splits - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  float* c_w = smem;                       // [n_splits][g] split weights
+  float* c_l = c_w + n_splits * g;         // [g] total sums
+  const float* ml = part_ml + bh * n_splits * g * 2;
+  // warp w takes rows w, w + 4, ...: the splits' max and total sum are
+  // warp reductions, each split's weight goes to shared memory
+  for (int r = warp; r < g; r += kWarps) {
+    float mx = kNegInf;
+    for (int s = lane; s < n_splits; s += 32)
+      mx = fmaxf(mx, __ldcg(ml + (s * g + r) * 2));
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int s = lane; s < n_splits; s += 32) {
+      // split 0 holds position 0, so mx is real and an empty split's
+      // weight is exp(-1e30 - mx) = 0
+      const float wt = expf(__ldcg(ml + (s * g + r) * 2) - mx);
+      c_w[s * g + r] = wt;
+      sum += wt * __ldcg(ml + (s * g + r) * 2 + 1);
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) c_l[r] = sum;
+  }
+  __syncthreads();
+  const float* pa = part_acc + bh * n_splits * gd;
+  for (int e = tid; e < gd; e += kThreads) {
+    const int r = e / d;
+    float a = 0.f;
+#pragma unroll 8
+    for (int s = 0; s < n_splits; ++s)
+      a += c_w[s * g + r] * __ldcg(pa + static_cast<long long>(s) * gd + e);
+    store(out + bh * gd + e, a / c_l[r]);
+  }
+  if (tid == 0) counters[bh] = 0;
 }
 
-template <typename T>
+template <typename T, int E, int GM>
 int launch(const void* q, const void* k, const void* v, const void* tables,
-           const void* lens, void* out, int b, int h, int kvh, int d,
-           int page_size, int max_pages, cudaStream_t stream) {
+           const void* lens, void* out, float* scratch, int* counters, int b,
+           int h, int kvh, int d, int page_size, int max_pages, int split,
+           int n_splits, cudaStream_t stream) {
+  constexpr int P = GM * E >= 32 ? 4 : 8;
   const int g = h / kvh;
-  // at most 16 * 256 * 8 + 16 * 64 * 4 + 192 bytes: below the 48 KB
-  // a block gets without opting in
-  const size_t smem = sizeof(float) * (2 * g * d + g * kChunk + 3 * g);
+  const size_t warp_floats = static_cast<size_t>(kWarps) * g * (d + 2);
+  const size_t combine_floats = static_cast<size_t>(n_splits) * g + g;
+  const size_t smem = sizeof(float) * (warp_floats > combine_floats
+                                           ? warp_floats : combine_floats);
+  auto kern = paged_decode_kernel<T, E, GM, P>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const uintptr_t align = reinterpret_cast<uintptr_t>(q) |
+                          reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v);
+  const int vec = d == 32 * E && align % 16 == 0;
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
-  paged_decode_kernel<T><<<dim3(kvh, b), kThreads, smem, stream>>>(
+  float* part_acc = scratch;
+  float* part_ml = scratch + static_cast<size_t>(b) * kvh * n_splits * g * d;
+  kern<<<dim3(n_splits, kvh, b), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(tables),
       static_cast<const int32_t*>(lens), kvh, g, d, page_size, max_pages,
-      scale, static_cast<T*>(out));
+      split, n_splits, vec, scale, part_acc, part_ml, counters,
+      static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int E>
+int dispatch_g(const void* q, const void* k, const void* v,
+               const void* tables, const void* lens, void* out,
+               float* scratch, int* counters, int b, int h, int kvh, int d,
+               int page_size, int max_pages, int split, int n_splits,
+               cudaStream_t s) {
+  const int g = h / kvh;
+  if (g <= 2)
+    return launch<T, E, 2>(q, k, v, tables, lens, out, scratch, counters, b,
+                           h, kvh, d, page_size, max_pages, split, n_splits,
+                           s);
+  if (g <= 4)
+    return launch<T, E, 4>(q, k, v, tables, lens, out, scratch, counters, b,
+                           h, kvh, d, page_size, max_pages, split, n_splits,
+                           s);
+  if (g <= 8)
+    return launch<T, E, 8>(q, k, v, tables, lens, out, scratch, counters, b,
+                           h, kvh, d, page_size, max_pages, split, n_splits,
+                           s);
+  return launch<T, E, 16>(q, k, v, tables, lens, out, scratch, counters, b,
+                          h, kvh, d, page_size, max_pages, split, n_splits,
+                          s);
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const void* tables,
+             const void* lens, void* out, float* scratch, int* counters,
+             int b, int h, int kvh, int d, int page_size, int max_pages,
+             int split, int n_splits, cudaStream_t s) {
+  if (d <= 64)
+    return dispatch_g<T, 2>(q, k, v, tables, lens, out, scratch, counters, b,
+                            h, kvh, d, page_size, max_pages, split, n_splits,
+                            s);
+  if (d <= 128)
+    return dispatch_g<T, 4>(q, k, v, tables, lens, out, scratch, counters, b,
+                            h, kvh, d, page_size, max_pages, split, n_splits,
+                            s);
+  return dispatch_g<T, 8>(q, k, v, tables, lens, out, scratch, counters, b, h,
+                          kvh, d, page_size, max_pages, split, n_splits, s);
 }
 
 }  // namespace
 
 // dtype: 0 = fp32, 1 = bf16 (q, pages and out alike).  Needs H % KV == 0,
 // 1 <= H / KV <= 16 and 1 <= D <= 256 (checked by the Python wrapper).
+// split: positions a block takes (a multiple of page_size); n_splits:
+// ceil(max_pages * page_size / split).  scratch: fp32, B * KV * n_splits *
+// G * (D + 2) values; counters: int32 [B * KV], all 0 (and left so).
 extern "C" int paged_attention_decode(const void* q, const void* k_pages,
                                       const void* v_pages, const void* tables,
-                                      const void* lens, void* out, int dtype,
-                                      int b, int h, int kvh, int d,
-                                      int page_size, int max_pages,
-                                      void* stream) {
+                                      const void* lens, void* out,
+                                      void* scratch, void* counters,
+                                      int dtype, int b, int h, int kvh, int d,
+                                      int page_size, int max_pages, int split,
+                                      int n_splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* sc = static_cast<float*>(scratch);
+  int* ct = static_cast<int*>(counters);
   if (dtype == 0)
-    return launch<float>(q, k_pages, v_pages, tables, lens, out, b, h, kvh,
-                         d, page_size, max_pages, s);
-  return launch<__nv_bfloat16>(q, k_pages, v_pages, tables, lens, out, b, h,
-                               kvh, d, page_size, max_pages, s);
+    return dispatch<float>(q, k_pages, v_pages, tables, lens, out, sc, ct, b,
+                           h, kvh, d, page_size, max_pages, split, n_splits,
+                           s);
+  return dispatch<__nv_bfloat16>(q, k_pages, v_pages, tables, lens, out, sc,
+                                 ct, b, h, kvh, d, page_size, max_pages,
+                                 split, n_splits, s);
 }

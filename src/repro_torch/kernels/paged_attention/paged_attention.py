@@ -4,15 +4,22 @@
 The source is compiled at first use with nvcc into a shared library and
 bound with ctypes (``kernels/_build.py``).  The wrapper takes CUDA tensors
 only, checks device, dtype, contiguity and shapes, allocates the output
-with ``torch.empty``, launches on the current stream without
-synchronising, and raises if the launch was refused.  ``launches`` counts
-its kernel launches.
+and the split partials' scratch with ``torch.empty``, launches on the
+current stream without synchronising, and raises if the launch was
+refused.  ``launches`` counts its kernel launches.
+
+The kernel splits each sequence's context across blocks (``split_plan``)
+and its last block per (batch, KV head) combines the splits, so one launch
+does the whole call.  The blocks find the last one with an int32 arrival
+counter per (batch, KV head), which the kernel leaves at 0; the counters
+are made once per device and reused, so launches on one device must share
+one stream.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -20,17 +27,42 @@ from .. import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-SIGNATURES = {"paged_attention_decode": [_VP] * 6 + [_I] * 7 + [_VP]}
+SIGNATURES = {"paged_attention_decode": [_VP] * 8 + [_I] * 9 + [_VP]}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GROUP = 16          # query heads per KV head the kernel holds
 MAX_HEAD_DIM = 256
+MIN_SPLIT = 64          # positions a block takes at least
+MAX_SPLITS = 128        # blocks per (batch, KV head) at most
 
 launches: Dict[str, int] = {"paged_attention": 0}
+_counters: Dict[torch.device, torch.Tensor] = {}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def split_plan(max_pages: int, page_size: int) -> Tuple[int, int]:
+    """(positions a split takes, splits) for a block table of
+    ``max_pages`` slots of ``page_size`` positions: whole pages, at least
+    MIN_SPLIT positions, and at most MAX_SPLITS splits over the table's
+    capacity.  Known on the host without reading the context lengths."""
+    if max_pages < 1 or page_size < 1:
+        raise ValueError(f"max_pages={max_pages}, page_size={page_size}: "
+                         "both must be >= 1")
+    pages = max(-(-MIN_SPLIT // page_size), -(-max_pages // MAX_SPLITS))
+    return pages * page_size, -(-max_pages // pages)
+
+
+def counters(dev: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 arrival counters on ``dev``, made once
+    and grown when a launch needs more; the kernel leaves them at 0."""
+    c = _counters.get(dev)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 64), dtype=torch.int32, device=dev)
+        _counters[dev] = c
+    return c
 
 
 def load() -> ctypes.CDLL:
@@ -83,14 +115,19 @@ def paged_attention_decode(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if bsz == 0:
         return out
+    max_pages = block_tables.shape[1]
+    split, n_splits = split_plan(max_pages, page_size)
+    scratch = torch.empty(bsz * h * n_splits * (d + 2),
+                          dtype=torch.float32, device=dev)
     lib = load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.paged_attention_decode(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-            DTYPES[q.dtype], bsz, h, kvh, d, page_size,
-            block_tables.shape[1], stream)
+            scratch.data_ptr(), counters(dev, bsz * kvh).data_ptr(),
+            DTYPES[q.dtype], bsz, h, kvh, d, page_size, max_pages, split,
+            n_splits, stream)
     _build.raise_on(err, "paged_attention_decode")
     launches["paged_attention"] += 1
     return out

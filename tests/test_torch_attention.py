@@ -11,6 +11,8 @@ same values go to both packages.
 The CUDA kernels run only on the card: the ``gpu`` tests decide inside
 their fixture whether a card and ``nvcc`` are present, and skip here.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -44,6 +46,8 @@ FLASH_SHAPES = [(1, 4, 4, 256, 64), (2, 8, 2, 512, 64), (1, 8, 1, 256, 128)]
 MASKS = [(True, None), (False, None), (True, 64)]
 PAGED_SHAPES = [(2, 4, 2, 16, 16, 4, 64), (3, 2, 4, 32, 8, 8, 128),
                 (1, 1, 8, 8, 16, 2, 64)]
+# Hymba-1.5B's prefill: B 4, 25 / 5 heads, S 2,048, D 64
+HYMBA_FLASH = (4, 25, 5, 2048, 64)
 
 
 def _tol(dtype: str):
@@ -142,6 +146,105 @@ def test_paged_attention_ref_matches_pallas_kernel():
 
 
 # ----------------------------------------------------------------------
+# the paged kernel's split-and-combine, in plain torch
+# ----------------------------------------------------------------------
+def _split_combine(q, k_pages, v_pages, tables, lens, split):
+    """Paged decode as the kernel computes it: the context cut into splits
+    of ``split`` positions, each split's (max, sum, weighted V) taken over
+    its own valid positions alone (a split with none is (NEG_INF, 0, 0)),
+    then every split rescaled by exp(m - max m) and summed."""
+    b, h, d = q.shape
+    _, ps, kvh, _ = k_pages.shape
+    g = h // kvh
+    cap = tables.shape[1] * ps
+    k = k_pages[tables.long()].reshape(b, cap, kvh, d).float()
+    v = v_pages[tables.long()].reshape(b, cap, kvh, d).float()
+    qr = q.reshape(b, kvh, g, d).float() / math.sqrt(d)
+    ms, ls, accs = [], [], []
+    for p0 in range(0, cap, split):
+        pos = torch.arange(p0, min(p0 + split, cap))
+        s = torch.einsum("bhgd,bkhd->bhgk", qr, k[:, pos])
+        valid = (pos[None, :] <= lens.long()[:, None])[:, None, None, :]
+        m = torch.where(valid, s, torch.tensor(-1e30)).amax(-1)
+        p = torch.where(valid, torch.exp(s - m[..., None]), torch.tensor(0.))
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bhgk,bkhd->bhgd", p, v[:, pos]))
+    m = torch.stack(ms)
+    w = torch.exp(m - m.amax(0))
+    out = (w[..., None] * torch.stack(accs)).sum(0) / \
+        (w * torch.stack(ls)).sum(0)[..., None]
+    return out.reshape(b, h, d)
+
+
+@pytest.mark.parametrize("split", [16, 64, 256])
+@pytest.mark.parametrize("b,kv,g,pages,ps,mp,d", [(4, 2, 2, 32, 16, 24, 64),
+                                                  (4, 1, 8, 64, 8, 100, 32)])
+def test_split_combine_matches_reference(split, b, kv, g, pages, ps, mp, d):
+    """Splits of 16, 64 and 256 positions: lens 0 (every split but the
+    first empty), on a split's last and the next's first position, and a
+    ragged tail; the tables reach far past most contexts."""
+    (jq, tq), (jk, tk), (jv, tv), tables, _ = _paged_inputs(
+        9, b, kv, g, pages, ps, mp, d, "float32")
+    lens = np.array([0, split - 1, split, min(mp * ps - 1, 2 * split + 7)],
+                    np.int32)[:b]
+    want = jax_paged_ref(jq, jk, jv, jnp.asarray(tables), jnp.asarray(lens))
+    got = _split_combine(tq, tk, tv, torch.from_numpy(tables),
+                         torch.from_numpy(lens), split)
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol("float32"))
+
+
+@pytest.mark.parametrize("mp,ps", [(1, 16), (74, 16), (4000, 16), (40, 8),
+                                   (3, 64), (129, 1)])
+def test_split_plan_covers_the_table(mp, ps):
+    """Whole pages, at least MIN_SPLIT positions, at most MAX_SPLITS
+    splits, and the splits cover the capacity; the split-and-combine over
+    that plan equals the reference."""
+    split, n = paged_kernel.split_plan(mp, ps)
+    assert split % ps == 0 and split >= paged_kernel.MIN_SPLIT
+    assert 1 <= n <= paged_kernel.MAX_SPLITS
+    assert (n - 1) * split < mp * ps <= n * split
+    if mp * ps <= 8192:
+        (jq, tq), (jk, tk), (jv, tv), tables, lens = _paged_inputs(
+            10, 2, 2, 2, 16, ps, mp, 32, "float32")
+        want = jax_paged_ref(jq, jk, jv, jnp.asarray(tables),
+                             jnp.asarray(lens))
+        got = _split_combine(tq, tk, tv, torch.from_numpy(tables),
+                             torch.from_numpy(lens), split)
+        np.testing.assert_allclose(_f32(got), _f32(want), **_tol("float32"))
+
+
+def test_split_plan_of_the_serving_shape():
+    """One Qwen3-1.7B request of ~1,180 positions in pages of 16: 19 splits
+    of 64, 152 blocks over 8 KV heads."""
+    assert paged_kernel.split_plan(74, 16) == (64, 19)
+    assert paged_kernel.split_plan(4000, 16) == (512, 125)
+    with pytest.raises(ValueError):
+        paged_kernel.split_plan(0, 16)
+
+
+@pytest.mark.parametrize("dtype,d,aligned,want", [
+    (torch.bfloat16, 64, True, "mma"), (torch.bfloat16, 128, True, "mma"),
+    (torch.bfloat16, 16, True, "mma"), (torch.bfloat16, 256, True, "mma"),
+    (torch.bfloat16, 48, True, "mma"), (torch.bfloat16, 40, True, "simt"),
+    (torch.bfloat16, 8, True, "simt"), (torch.bfloat16, 64, False, "simt"),
+    (torch.float32, 64, True, "simt"), (torch.float32, 128, True, "simt")])
+def test_flash_variant_choice(dtype, d, aligned, want):
+    """bf16 with D a multiple of 16 up to 256 on aligned tensors takes the
+    tensor-core kernel; fp32 (no TF32) and every other call the CUDA-core
+    kernel."""
+    assert flash_kernel.variant(dtype, d, aligned) == want
+
+
+def test_reset_launches_clears_the_variant_counts():
+    flash_kernel.launches["flash_attention"] = 3
+    flash_kernel.variant_launches.update(mma=2, simt=1)
+    flash_kernel.reset_launches()
+    assert flash_kernel.launches == {"flash_attention": 0}
+    assert flash_kernel.variant_launches == {"mma": 0, "simt": 0}
+
+
+# ----------------------------------------------------------------------
 # the CUDA wrappers take CUDA tensors only
 # ----------------------------------------------------------------------
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -175,7 +278,8 @@ def card():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,kv,s,d", FLASH_SHAPES + [(1, 16, 8, 1000, 128),
-                                                       (1, 16, 8, 1531, 128)])
+                                                       (1, 16, 8, 1531, 128),
+                                                       HYMBA_FLASH])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("causal,window", MASKS)
 def test_flash_kernel_matches_plain(card, b, h, kv, s, d, dtype, causal,
