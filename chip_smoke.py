@@ -64,7 +64,12 @@ nvcc per source, all started together, into ``build/repro_torch/``, then:
    their plain PyTorch versions on the card at the sweep shapes of
    ``tests/test_kernels.py`` and at T in {1, 1000, 2048} x di in {3200,
    8192}, N 16, within 1e-4; the fused kernel also against v1 given bx
-   formed outside;
+   formed outside, and at each of its lanes-a-channel options (2, 4)
+   whatever the wrapper picks; then the fused kernel's edges: T 1 and
+   on, one below and one above its 32-step chunk and half of it, di
+   3,000 (no multiple of any block's channels) and 37 (odd: 4-byte
+   copies), N 1, 5, 8, decays all 0 (dt 500), all 1 (dt 0) and 1 on
+   every other step, and B 1 at Falcon-Mamba's width;
 10. model identity: Falcon-Mamba-7B at full width cut to 2 layers and
    Hymba-1.5B cut to 3 (``layer_windows`` takes the full-attention layers
    modulo depth: at 2 every Hymba layer is full), fp32 weights, TF32 off.
@@ -85,12 +90,17 @@ nvcc per source, all started together, into ``build/repro_torch/``, then:
    its window exactly where ``layer_windows`` gives one, every one on the
    tensor-core kernel, no kernel in decode; finite logits.  After phase
    12, each model is made again and one prefill and 16 decode steps run
-   under the profiler: the device's busy share of phase 11's wall time
-   (``phase11_busy``);
+   under the profiler: the device's busy share of phase 11's wall time,
+   and the prefill's device time split by operation, the fused scan's
+   and flash's share of it measured (one scan launch a layer in the
+   trace) (``phase11_busy``);
 12. the scans at the path's shapes: fused-scan calls captured uniformly in
    phase 11 again through the kernel and its plain version, and through
    v1 with bx formed outside (not timed), compared and timed beside the
-   least time the card could take (no PyTorch call computes the scan);
+   least time the card could take (no PyTorch call computes the scan)
+   and the special-function units' time for its exponentials
+   (``bound_sfu_ms``: one a (t, d, n) at 16 a clock an SM, at the SM's
+   maximum clock);
    likewise Hymba's flash calls captured in phase 11 (windowed and full
    layers, bf16) against the plain version within 2e-2, timed beside
    their bound, ``scaled_dot_product_attention`` and the wrapper's other
@@ -1084,19 +1094,40 @@ def phase_attention_captured(rec: AttentionRecorder, launched: dict,
 SCAN_CASES = ([(1, 64, 256, 8), (2, 128, 512, 16), (1, 256, 256, 4)]
               + [(2, t, di, 16) for t in (1, 1000, 2048)
                  for di in (3200, 8192)])
+# the fused kernel's edges (b, t, di, n, dt): T on, one below and one
+# above its chunk (32 steps a shared buffer) and half of it; di not a
+# multiple of any lanes option's channels a block (64, 32) and di
+# odd (dt and x copied 4 bytes at a time); N 1, 5, 8, 16; dt so large
+# that every decay underflows to 0 (A bounded away from 0), dt 0 (every
+# decay 1) everywhere and on every other step; B 1 at Falcon-Mamba's width
+SCAN_EDGES = ([(2, t, 3000, 16, "model") for t in (1, 15, 16, 17, 31, 32,
+                                                   33)]
+              + [(3, 70, 37, 16, "model"), (2, 40, 1000, 1, "model"),
+                 (2, 40, 1000, 5, "model"), (2, 40, 1000, 8, "model"),
+                 (2, 100, 1000, 16, "underflow"), (2, 100, 1000, 16, "zero"),
+                 (2, 100, 1000, 16, "zero_odd_steps"),
+                 (1, 2048, 8192, 16, "model")])
 SCAN_TOL = 1e-4                       # tests/test_kernels.py
 
 
-def fused_case(rng, b, t, di, n, dev) -> tuple:
+def fused_case(rng, b, t, di, n, dev, dt_mode: str = "model") -> tuple:
     """(dt, x, B, C, A) as a Mamba layer feeds the fused scan: dt > 0,
-    A < 0, fp32."""
-    return (torch.from_numpy(np.abs(rng.standard_normal((b, t, di)))
-                             .astype(np.float32) * 0.1).to(dev),
+    A < 0, fp32.  ``dt_mode``: "underflow" makes dt 500 and |A| >= 0.5,
+    so every decay is exp(<= -250) = 0; "zero" makes dt 0, so every decay
+    is 1; "zero_odd_steps" zeroes dt on odd steps only."""
+    dt = np.abs(rng.standard_normal((b, t, di))).astype(np.float32) * 0.1
+    a = -np.abs(rng.standard_normal((di, n))).astype(np.float32)
+    if dt_mode == "underflow":
+        dt[:], a = 500.0, a - 0.5
+    elif dt_mode == "zero":
+        dt[:] = 0.0
+    elif dt_mode == "zero_odd_steps":
+        dt[:, 1::2] = 0.0
+    return (torch.from_numpy(dt).to(dev),
             randn(rng, (b, t, di), torch.float32, dev),
             randn(rng, (b, t, n), torch.float32, dev) * 0.3,
             randn(rng, (b, t, n), torch.float32, dev),
-            -torch.from_numpy(np.abs(rng.standard_normal((di, n)))
-                              .astype(np.float32)).to(dev))
+            torch.from_numpy(a).to(dev))
 
 
 def form_bx(dt, x, bm) -> torch.Tensor:
@@ -1104,13 +1135,31 @@ def form_bx(dt, x, bm) -> torch.Tensor:
     return (dt * x)[..., None] * bm[:, :, None, :]
 
 
-def scan_errors(call) -> dict:
+def fused_lanes(lanes: int):
+    """The fused kernel launched with ``lanes`` lanes a channel whatever
+    the wrapper would pick (counts nothing)."""
+    def run(dt, x, bm, c, a):
+        y = torch.empty_like(dt)
+        fused_kernel.launch(fused_kernel.shape(dt.shape[0], dt.shape[2],
+                                               lanes), dt, x, bm, c, a, y)
+        return y
+    return run
+
+
+def scan_errors(call, every_lanes: bool = False) -> dict:
     """A fused-scan call (dt, x, B, C, A) through both kernels and both
-    plain versions: {check: (max abs error, within SCAN_TOL)}."""
+    plain versions: {check: (max abs error, within SCAN_TOL)}; with
+    ``every_lanes``, the fused kernel also at each lanes-a-channel option
+    against its plain version."""
     dt, x, bm, c, a = call
     fused = fused_kernel.selective_scan_fused(*call)
-    out = {"fused_vs_plain": within(fused, selective_scan_fused_ref(*call),
-                                    SCAN_TOL)}
+    want = selective_scan_fused_ref(*call)
+    out = {"fused_vs_plain": within(fused, want, SCAN_TOL)}
+    if every_lanes:
+        for lanes in fused_kernel.LANES:
+            out[f"fused_lanes{lanes}_vs_plain"] = within(
+                fused_lanes(lanes)(*call), want, SCAN_TOL)
+    del want
     bx = form_bx(dt, x, bm)
     v1 = scan_kernel.selective_scan(dt, bx, c, a)
     out["v1_vs_plain"] = within(v1, selective_scan_ref(dt, bx, c, a),
@@ -1121,15 +1170,22 @@ def scan_errors(call) -> dict:
 
 def phase_scan_kernels(dev) -> dict:
     rng = np.random.default_rng(9)
+    sms = fused_kernel.sm_count(dev)
     out = {}
-    for shape in SCAN_CASES:
-        errs = scan_errors(fused_case(rng, *shape, dev))
+    for b, t, di, n, mode in ([s + ("model",) for s in SCAN_CASES]
+                              + SCAN_EDGES):
+        errs = scan_errors(fused_case(rng, b, t, di, n, dev, mode),
+                           every_lanes=True)
         torch.cuda.synchronize()
-        out["x".join(map(str, shape))] = {
-            k: {"max_abs_err": e, "ok": ok} for k, (e, ok) in errs.items()}
+        name = "x".join(map(str, (b, t, di, n))) + (
+            "" if mode == "model" else f"_{mode}")
+        out[name] = {k: {"max_abs_err": e, "ok": ok}
+                     for k, (e, ok) in errs.items()}
+        out[name]["lanes"] = fused_kernel.plan(b, di, sms).lanes
     for name, r in out.items():
         for k, v in r.items():
-            check(v["ok"], f"phase 9 {name} {k}: within {SCAN_TOL}")
+            if k != "lanes":
+                check(v["ok"], f"phase 9 {name} {k}: within {SCAN_TOL}")
     return out
 
 
@@ -1158,17 +1214,24 @@ def model_launches() -> dict:
             **kernel.launches}
 
 
-def device_busy_ms(fn) -> float:
-    """Device time of everything ``fn`` launches (kernels, copies, fills),
-    summed from ``torch.profiler``'s CUDA activity, in ms; on one stream
-    nothing overlaps.  0.0 when the profiler records no device time."""
+def device_ops(fn) -> list:
+    """Device time of everything ``fn`` launches (kernels, copies, fills)
+    from ``torch.profiler``'s CUDA activity, by operation: [(name, total
+    ms, count)], the largest first; on one stream nothing overlaps."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(getattr(ev, "self_device_time_total",
-                       getattr(ev, "self_cuda_time_total", 0.0))
-               for ev in prof.key_averages()) / 1e3
+    ops = [(ev.key, getattr(ev, "self_device_time_total",
+                            getattr(ev, "self_cuda_time_total", 0.0)) / 1e3,
+            ev.count) for ev in prof.key_averages()]
+    return sorted((o for o in ops if o[1] > 0), key=lambda o: -o[1])
+
+
+def device_busy_ms(fn) -> float:
+    """The sum of ``device_ops``, in ms (0.0 when the profiler records no
+    device time)."""
+    return sum(ms for _, ms, _ in device_ops(fn))
 
 
 def expected_windows(cfg) -> list:
@@ -1338,29 +1401,49 @@ def main_inputs(cfg) -> tuple:
     return prompts, short
 
 
+TOP_OPS = 8                   # device operations of a prefill listed
+
+
 def phase_busy_share(model_out: dict, dev: str = "cuda") -> dict:
     """The device's busy share of phase 11's prefill and decode: each
     model made again (same seed), one prefill and BUSY_STEPS decode steps
     under the profiler, their device time over phase 11's unprofiled wall
-    time.  It runs last: after traces this large, later profiler traces
-    in the process missed their first kernels (phase 12's device times)."""
+    time; the prefill's device time split by operation (the TOP_OPS
+    largest, and the fused scan's and flash's share of it).  It runs
+    last: after traces this large, later profiler traces in the process
+    missed their first kernels (phase 12's device times)."""
     out = {}
     for name, o in model_out.items():
         cfg = get_config(name)
         model = init_model(cfg, seed=0, device=dev)
         prompts, short = main_inputs(cfg)
-        prefill_dev = device_busy_ms(lambda: make_prefill_step(cfg)(
+        ops = device_ops(lambda: make_prefill_step(cfg)(
             model, {"tokens": prompts.to(dev)}))
+        prefill_dev = sum(ms for _, ms, _ in ops)
         step_dev = device_busy_ms(lambda: serve(
             cfg, model, short[:, :8], BUSY_STEPS - 7, dev,
             keep_logits=False)) / BUSY_STEPS
         d, pre = o["decode"], o["prefill"]
+
+        def share(symbol):
+            hits = [(ms, n) for key, ms, n in ops if symbol in key]
+            return {"device_ms": sum(ms for ms, _ in hits),
+                    "launches": sum(n for _, n in hits),
+                    "share": sum(ms for ms, _ in hits) / prefill_dev}
         out[name] = {
             "prefill_device_ms": prefill_dev,
             "prefill_busy_share": prefill_dev / (1e3 * pre["seconds"]),
+            "prefill_top_ops": [{"op": key[:120], "device_ms": ms,
+                                 "count": n, "share": ms / prefill_dev}
+                                for key, ms, n in ops[:TOP_OPS]],
+            "prefill_fused_scan": share("selective_scan_fused_kernel"),
+            "prefill_flash": share("flash_fwd"),
             "decode_device_ms_per_step": step_dev,
             "decode_wall_ms_per_step": 1e3 * d["seconds"] / d["steps"],
             "decode_busy_share": step_dev * d["steps"] / (1e3 * d["seconds"])}
+        check(out[name]["prefill_fused_scan"]["launches"] == cfg.num_layers,
+              f"phase 11 {name}: the profiled prefill shows one fused-scan "
+              "launch a layer")
         del model
         torch.cuda.empty_cache()
     return out
@@ -1468,7 +1551,25 @@ def phase_model_main(name: str, dev: str = "cuda", keep: int = 3):
 # phase 12: the captured scan calls, again and timed
 # ----------------------------------------------------------------------
 SCAN_FLOPS = 6                 # exp argument, decay, dt*x*B, h, h*c, sum
+SFU_PER_CLOCK = 16             # exponentials an SM returns a clock (cc 9.0)
 SCAN_SOURCE = scan_kernel.SOURCE
+
+
+def max_sm_hz() -> float:
+    """The card's maximum SM clock, from nvidia-smi."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def scan_sfu_bound(call, sfu_per_s: float) -> float:
+    """Seconds the special-function units take for the scan's one
+    exponential a (t, d, n) (both kernels), at ``sfu_per_s``: SMs x
+    SFU_PER_CLOCK x the maximum SM clock."""
+    dt, a = call[0], call[4]
+    return dt.numel() * a.shape[1] / sfu_per_s
 
 
 def scan_bound(call, v1: bool) -> tuple:
@@ -1533,6 +1634,9 @@ def phase_scan_captured(calls: dict, launched: dict) -> list:
         v1_plain.append(cuda_ms(selective_scan_ref, [args], 1))
         v1_dev.append(bracketed_ms(scan_kernel.selective_scan, [args], 5))
         del args
+    sfu_per_s = (fused_kernel.sm_count(flat[0][0].device) * SFU_PER_CLOCK
+                 * max_sm_hz())
+    t_sfu = np.array([scan_sfu_bound(c, sfu_per_s) for c in flat])
     kernels = []
     for name, v1 in (("selective_scan", True),
                      ("selective_scan_fused", False)):
@@ -1544,6 +1648,7 @@ def phase_scan_captured(calls: dict, launched: dict) -> list:
                "bound_ms": 1e3 * float(np.mean(np.maximum(t_bytes, t_ops))),
                "bound_by": ("bytes" if np.mean(t_bytes) >= np.mean(t_ops)
                             else "operations"),
+               "bound_sfu_ms": 1e3 * float(np.mean(t_sfu)),
                "library_ms": None,
                "timed_calls": len(flat),
                "calls_by_model": {m: len(cs) for m, cs in calls.items()},
@@ -1572,9 +1677,13 @@ def phase_scan_captured(calls: dict, launched: dict) -> list:
                                       5)
             row["by_model"][model] = {
                 "shape": list(cs[0][0].shape) + [cs[0][4].shape[1]],
+                **({} if v1 else {"lanes": fused_kernel.plan(
+                    cs[0][0].shape[0], cs[0][0].shape[2],
+                    fused_kernel.sm_count(cs[0][0].device)).lanes}),
                 "ms": ms, "device_ms": dev_ms,
                 "bound_ms": 1e3 * float(np.mean(np.maximum(
-                    t_bytes[part], t_ops[part])))}
+                    t_bytes[part], t_ops[part]))),
+                "bound_sfu_ms": 1e3 * float(np.mean(t_sfu[part]))}
         # every model times the same number of calls
         row["device_ms"] = float(np.mean(
             [m["device_ms"] for m in row["by_model"].values()]))
@@ -1695,7 +1804,8 @@ def merge_flash(kernels: list, by_model: dict, variants: dict) -> None:
 def timings(card: str, kernels: list) -> dict:
     return {"card": card, "kernels": [
         {k: v for k, v in d.items() if k in (
-            "name", "ms", "plain_ms", "device_ms", "bound_ms", "library_ms",
+            "name", "ms", "plain_ms", "device_ms", "bound_ms",
+            "bound_sfu_ms", "library_ms",
             "timed_calls", "mean_items_per_call", "mean_context",
             "mean_prompt", "by_model")}
         for d in kernels]}

@@ -16,24 +16,49 @@
 // The TPU kernels grid over (batch, di blocks, T chunks) with the chunks
 // sequential and the [block_d, N] state carried in VMEM scratch, and they
 // assert di % block_d == 0 and T % chunk == 0.  Here nothing carries
-// between blocks, so each block owns 32 channels (b, d) for the whole
-// sequence and keeps their states in registers.  A channel's N states are
-// split over 4 lanes, 4 states each (so N <= 16): with one channel a
-// thread, Hymba-1.5B's di = 3,200 at B = 4 would give 12,800 threads, under
-// 100 per SM; 4 lanes a channel give 4x that, cost 2 shuffles a step for
-// y, and make v1's bx[b, t, d, :] reads contiguous across a warp (a lane
-// reads its 4 states as one float4 when N = 16).  A block loops over T in
-// chunks of 32 steps: dt (and x) for its 32 channels and B_t / C_t
-// ([chunk, N], the same for every channel of a batch row) are staged in
-// shared memory with loads coalesced along d, and y goes out through
-// shared memory the same way.  Steps past T and channels past di are
-// masked in the kernel, so any T and any di work.
+// between blocks, so a block owns a set of channels (b, d) for the whole
+// sequence and keeps their states in registers, looping over T in chunks.
+// Steps past T and channels past di are masked in the kernel, so any T
+// and any di work; N <= 16.
 //
-// What bounds it: bytes for v1, which reads the N-fold bx (4 * N bytes a
-// (t, d) against 12 for dt, x and y); for the fused kernel the bytes are
-// N times fewer and the ~6 flops and one expf a (t, d, n) come close to
-// them.  This first kernel uses the accurate expf (the tolerance is 1e-4)
-// and no chunked parallel scan over T: that is later work.
+// The fused kernel (every Mamba layer of a model prefill).  What bounds
+// it: each (t, d, n) needs one exponential, and the special-function
+// units return 16 a clock per SM, which at Falcon-Mamba-7B's and
+// Hymba-1.5B's prefill shapes takes slightly longer than moving the 12
+// bytes a (t, d) of dt, x and y; every other operation must hide behind
+// those two.  The design, step by step:
+//   1. Fast exponent: A is multiplied by log2(e) once, when a thread
+//      loads it into registers, and every decay is one FMA and one
+//      ex2.approx.ftz (a single MUFU.EX2; the accurate expf is a range
+//      reduction around it).  The FMA adds 1 to the argument, for
+//      accuracy (see the kernel), at no cost.
+//   2. No reduction in the step loop: a channel's 16 states sit on
+//      `lanes` neighbouring lanes (2 or 4; 16 / lanes states each).
+//      Each lane keeps its partial sums of `lanes` consecutive steps, and
+//      one butterfly (lanes - 1 shuffles) leaves lane l with the whole
+//      sum of step l, which it stores: no per-step shuffle, add or
+//      predicated shared store.
+//   3. Loads overlap the scan: dt, x (for the block's channels), B and C
+//      (for all of them) of chunk k + 1 (32 steps) are copied into a
+//      second shared-memory buffer with cp.async, 16 bytes a copy where
+//      the shapes allow, while chunk k is scanned; one barrier a chunk.
+//      Past-T steps are zero-filled (dt = 0: decay 1, bx 0), so every
+//      chunk runs whole.
+//   4. Warps at narrow widths: the wrapper picks `lanes` from B * di and
+//      the card's SM count (fused.py:plan): 2 where the channels give
+//      every SM's four schedulers a warp, else 4 (twice the warps).  At
+//      Hymba-1.5B's di 3,200 two lanes still beat four, and one lane a
+//      channel (16 states a thread) lost at both model shapes (measured
+//      on an H100, PERF.md), so the kernel is built for 2 and 4.
+// What it leaves: the exponentials themselves (only splitting them
+// between the special-function units and a polynomial on the FMA pipe
+// goes under that floor), and whatever keeps it from issuing one
+// exponential every clock a scheduler (see PERF.md).
+//
+// v1 (no model path calls it, as in the reference) keeps its first
+// design: 4 lanes a channel, 4 states a lane, the accurate expf, loads
+// and scan in turn, a shuffle reduction a step.  It is bound by bytes:
+// it reads the N-fold bx, 4 * N bytes a (t, d).
 //
 // The launchers allocate nothing and do not synchronise; they launch on
 // the caller's stream and return cudaGetLastError().
@@ -44,27 +69,26 @@
 
 namespace {
 
+constexpr int kMaxN = 16;                      // states a channel holds
+
+// ---------------------------------------------------------------- v1 --
 constexpr int kLanes = 4;                      // lanes per channel
 constexpr int kStates = 4;                     // states per lane
-constexpr int kMaxN = kLanes * kStates;        // 16
 constexpr int kThreads = 128;
 constexpr int kChannels = kThreads / kLanes;   // channels per block
 constexpr int kChunk = 32;                     // steps staged per pass
 
-// One block: channels d0 .. d0 + 31 of batch row b.  kFused: src is x and
-// bm is B; otherwise src is bx (and bm unused).  kVec: N == 16 and bx is
-// 16-byte aligned, so a lane reads its 4 states of bx as one float4.
-template <bool kFused, bool kVec>
-__device__ __forceinline__ void scan_body(const float* __restrict__ dt,
-                                          const float* __restrict__ src,
-                                          const float* __restrict__ bm,
-                                          const float* __restrict__ c,
-                                          const float* __restrict__ a,
-                                          float* __restrict__ y, int t_len,
-                                          int di, int n) {
+// One block: channels d0 .. d0 + 31 of batch row b, reading bx.  kVec:
+// N == 16 and bx is 16-byte aligned, so a lane reads its 4 states of bx
+// as one float4.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    selective_scan_kernel(const float* __restrict__ dt,
+                          const float* __restrict__ src,
+                          const float* __restrict__ c,
+                          const float* __restrict__ a, float* __restrict__ y,
+                          int t_len, int di, int n) {
   __shared__ float s_dt[kChunk][kChannels];
-  __shared__ float s_x[kFused ? kChunk : 1][kChannels];
-  __shared__ float s_b[kFused ? kChunk : 1][kMaxN];
   __shared__ float s_c[kChunk][kMaxN];
   __shared__ float s_y[kChunk][kChannels];
 
@@ -89,28 +113,19 @@ __device__ __forceinline__ void scan_body(const float* __restrict__ dt,
     for (int i = threadIdx.x; i < kChunk * kChannels; i += kThreads) {
       const int tt = i / kChannels, cc = i % kChannels;
       const bool ok = tt < steps && d0 + cc < di;
-      const size_t g = (row0 + t0 + tt) * di + d0 + cc;
-      s_dt[tt][cc] = ok ? dt[g] : 0.f;
-      if constexpr (kFused) s_x[tt][cc] = ok ? src[g] : 0.f;
+      s_dt[tt][cc] = ok ? dt[(row0 + t0 + tt) * di + d0 + cc] : 0.f;
     }
     for (int i = threadIdx.x; i < kChunk * kMaxN; i += kThreads) {
       const int tt = i / kMaxN, s = i % kMaxN;
       const bool ok = tt < steps && s < n;
-      const size_t g = (row0 + t0 + tt) * n + s;
-      s_c[tt][s] = ok ? c[g] : 0.f;
-      if constexpr (kFused) s_b[tt][s] = ok ? bm[g] : 0.f;
+      s_c[tt][s] = ok ? c[(row0 + t0 + tt) * n + s] : 0.f;
     }
     __syncthreads();
 
     for (int tt = 0; tt < steps; ++tt) {
       const float dtv = s_dt[tt][ch];
       float bx[kStates];
-      if constexpr (kFused) {
-        const float dtx = dtv * s_x[tt][ch];
-#pragma unroll
-        for (int j = 0; j < kStates; ++j)
-          bx[j] = dtx * s_b[tt][lane * kStates + j];
-      } else if constexpr (kVec) {
+      if constexpr (kVec) {
         float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
         if (live)
           v = reinterpret_cast<const float4*>(
@@ -144,22 +159,94 @@ __device__ __forceinline__ void scan_body(const float* __restrict__ dt,
       const int tt = i / kChannels, cc = i % kChannels;
       if (d0 + cc < di) y[(row0 + t0 + tt) * di + d0 + cc] = s_y[tt][cc];
     }
-    // the next pass writes s_dt .. s_c only, and s_y after its own
+    // the next pass writes s_dt and s_c only, and s_y after its own
     // __syncthreads, which every thread reaches after this loop
   }
 }
 
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-    selective_scan_kernel(const float* __restrict__ dt,
-                          const float* __restrict__ bx,
-                          const float* __restrict__ c,
-                          const float* __restrict__ a, float* __restrict__ y,
-                          int t_len, int di, int n) {
-  scan_body<false, kVec>(dt, bx, nullptr, c, a, y, t_len, di, n);
+// ------------------------------------------------------------- fused --
+constexpr int kFusedThreads = 128;
+constexpr int kFusedChunk = 32;                // steps a shared buffer holds
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// 2^e for -126 <= e <= 127, exactly
+__device__ __forceinline__ float pow2(int e) {
+  return __int_as_float((127 + e) << 23);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Copy `bytes` (0 or the whole size) and zero-fill the rest; with 0 bytes
+// nothing is read (the address is still a valid one).
+__device__ __forceinline__ void cp_async4(void* dst, const float* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const float* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Sum each of the kL steps' partials over the kL lanes of a channel: lane
+// l returns the whole sum of step l (kL - 1 shuffles, no more adds).
+template <int kL>
+__device__ __forceinline__ float reduce_scatter(const float (&p)[kL],
+                                                int lane) {
+  if constexpr (kL == 2) {
+    const bool lo = lane & 1;
+    return (lo ? p[1] : p[0]) +
+           __shfl_xor_sync(0xffffffffu, lo ? p[0] : p[1], 1);
+  } else {
+    static_assert(kL == 4, "2 or 4 lanes a channel");
+    const bool hi = lane & 2, lo = lane & 1;
+    const float k0 = (hi ? p[2] : p[0]) +
+                     __shfl_xor_sync(0xffffffffu, hi ? p[0] : p[2], 2);
+    const float k1 = (hi ? p[3] : p[1]) +
+                     __shfl_xor_sync(0xffffffffu, hi ? p[1] : p[3], 2);
+    return (lo ? k1 : k0) + __shfl_xor_sync(0xffffffffu, lo ? k0 : k1, 1);
+  }
+}
+
+// One block: kCh = 128 / kL channels d0 .. of batch row b, each over kL
+// lanes of kS = 16 / kL states.  kVec: di % 4 == 0, N == 16 and every
+// input 16-byte aligned, so dt, x, B and C are copied 16 bytes at a time.
+//
+// The decay is 0.5 * ex2(dt * A log2(e) + 1): the unit's argument then
+// lies in [0, 1) wherever the decay is near 1, as in expf's own range
+// reduction.  ex2 of the small negative argument itself rounds such
+// decays low on average where expf rounds them high (tools/scan_cost.py
+// --probe), and over 2,048 steps of a state whose decay is within an ulp
+// of 1 that bias alone took y past 1e-4 of the plain version (which uses
+// expf) in chip_smoke.py's phase 9.  The 0.5 costs nothing:
+// inside a chunk the kernel carries u = 2^(tt + 1) * h after step tt,
+// u = E * u + dt x * (2^(tt + 1) B_tt) with E = 2 * decay, and sums
+// u * (2^-(tt + 1) C_tt); B and C are scaled once, when a chunk lands,
+// and u back by 2^-kK at its end.  Powers of two scale exactly (away
+// from overflow and subnormals), so this is the arithmetic of
+// h = fma(h, 0.5 E, dt x B) bit for bit.
+template <int kL, bool kVec>
+__global__ void __launch_bounds__(kFusedThreads)
     selective_scan_fused_kernel(const float* __restrict__ dt,
                                 const float* __restrict__ x,
                                 const float* __restrict__ bm,
@@ -167,11 +254,155 @@ __global__ void __launch_bounds__(kThreads)
                                 const float* __restrict__ a,
                                 float* __restrict__ y, int t_len, int di,
                                 int n) {
-  scan_body<true, false>(dt, x, bm, c, a, y, t_len, di, n);
+  constexpr int kCh = kFusedThreads / kL;
+  constexpr int kS = kMaxN / kL;
+  constexpr int kK = kFusedChunk;
+  static_assert(kK % kL == 0 && kS % 4 == 0 && kK < 64, "chunk, states");
+  __shared__ __align__(16) float s_dt[2][kK][kCh];
+  __shared__ __align__(16) float s_x[2][kK][kCh];
+  __shared__ __align__(16) float s_b[2][kK][kMaxN];
+  __shared__ __align__(16) float s_c[2][kK][kMaxN];
+
+  const int b = blockIdx.y;
+  const int d0 = blockIdx.x * kCh;
+  const int ch = threadIdx.x / kL;
+  const int lane = threadIdx.x % kL;
+  const int d = d0 + ch;
+  const bool live = d < di;
+  const size_t row0 = static_cast<size_t>(b) * t_len;   // (b, t = 0)
+
+  float a2[kS], u[kS];
+#pragma unroll
+  for (int j = 0; j < kS; ++j) {
+    const int s = lane * kS + j;
+    a2[j] = (live && s < n) ? a[static_cast<size_t>(d) * n + s] * kLog2e
+                            : 0.f;
+    u[j] = 0.f;
+  }
+
+  // Chunk `k` into buffer `buf`, one commit group a thread; then, once it
+  // has landed, `scale` multiplies the B and C values this same thread
+  // copied by 2^(tt + 1) and 2^-(tt + 1).
+  auto stage = [&](int k, int buf) {
+    const int t0 = k * kK;
+    if constexpr (kVec) {
+      constexpr int kQ = kCh / 4;
+      for (int i = threadIdx.x; i < kK * kQ; i += kFusedThreads) {
+        const int tt = i / kQ, q = (i % kQ) * 4;
+        const bool ok = t0 + tt < t_len && d0 + q < di;
+        const size_t g = ok ? (row0 + t0 + tt) * di + d0 + q : 0;
+        cp_async16(&s_dt[buf][tt][q], dt + g, ok ? 16 : 0);
+        cp_async16(&s_x[buf][tt][q], x + g, ok ? 16 : 0);
+      }
+      for (int i = threadIdx.x; i < kK * 4; i += kFusedThreads) {
+        const int tt = i / 4, q = (i % 4) * 4;
+        const bool ok = t0 + tt < t_len;
+        const size_t g = ok ? (row0 + t0 + tt) * kMaxN + q : 0;
+        cp_async16(&s_b[buf][tt][q], bm + g, ok ? 16 : 0);
+        cp_async16(&s_c[buf][tt][q], c + g, ok ? 16 : 0);
+      }
+    } else {
+      for (int i = threadIdx.x; i < kK * kCh; i += kFusedThreads) {
+        const int tt = i / kCh, cc = i % kCh;
+        const bool ok = t0 + tt < t_len && d0 + cc < di;
+        const size_t g = ok ? (row0 + t0 + tt) * di + d0 + cc : 0;
+        cp_async4(&s_dt[buf][tt][cc], dt + g, ok ? 4 : 0);
+        cp_async4(&s_x[buf][tt][cc], x + g, ok ? 4 : 0);
+      }
+      for (int i = threadIdx.x; i < kK * kMaxN; i += kFusedThreads) {
+        const int tt = i / kMaxN, s = i % kMaxN;
+        const bool ok = t0 + tt < t_len && s < n;
+        const size_t g = ok ? (row0 + t0 + tt) * n + s : 0;
+        cp_async4(&s_b[buf][tt][s], bm + g, ok ? 4 : 0);
+        cp_async4(&s_c[buf][tt][s], c + g, ok ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+  auto scale = [&](int buf) {
+    cp_async_wait_all();
+    constexpr int kPer = kVec ? 4 : 1;          // floats a copy
+    for (int i = threadIdx.x; i < kK * kMaxN / kPer; i += kFusedThreads) {
+      const int tt = i / (kMaxN / kPer), s = (i % (kMaxN / kPer)) * kPer;
+      const float up = pow2(tt + 1), down = pow2(-tt - 1);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        s_b[buf][tt][s + j] *= up;
+        s_c[buf][tt][s + j] *= down;
+      }
+    }
+  };
+
+  const int chunks = (t_len + kK - 1) / kK;
+  stage(0, 0);
+  scale(0);
+  for (int k = 0; k < chunks; ++k) {
+    const int buf = k & 1;
+    // chunk k is in place and scaled, and every thread is done with
+    // chunk k - 1, whose buffer chunk k + 1 now fills
+    __syncthreads();
+    if (k + 1 < chunks) stage(k + 1, buf ^ 1);
+    const int t0 = k * kK;
+#pragma unroll 4
+    for (int g = 0; g < kK; g += kL) {
+      float part[kL];
+#pragma unroll
+      for (int w = 0; w < kL; ++w) {
+        const int tt = g + w;
+        const float dtv = s_dt[buf][tt][ch];
+        const float dtx = dtv * s_x[buf][tt][ch];
+        const float4* bv4 =
+            reinterpret_cast<const float4*>(&s_b[buf][tt][lane * kS]);
+        const float4* cv4 =
+            reinterpret_cast<const float4*>(&s_c[buf][tt][lane * kS]);
+        float acc[kS / 4];
+#pragma unroll
+        for (int q = 0; q < kS / 4; ++q) {
+          const float4 bq = bv4[q], cq = cv4[q];
+          const float bj[4] = {bq.x, bq.y, bq.z, bq.w};
+          const float cj[4] = {cq.x, cq.y, cq.z, cq.w};
+          acc[q] = 0.f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int s = 4 * q + j;
+            u[s] = fmaf(u[s], ex2(fmaf(dtv, a2[s], 1.f)), dtx * bj[j]);
+            acc[q] = fmaf(u[s], cj[j], acc[q]);
+          }
+        }
+        float sum = acc[0];
+#pragma unroll
+        for (int q = 1; q < kS / 4; ++q) sum += acc[q];
+        part[w] = sum;
+      }
+      const float yv = reduce_scatter<kL>(part, lane);
+      const int t = t0 + g + lane;
+      if (live && t < t_len) y[(row0 + t) * di + d] = yv;
+    }
+#pragma unroll
+    for (int j = 0; j < kS; ++j) u[j] *= pow2(-kK);
+    if (k + 1 < chunks) scale(buf ^ 1);
+  }
 }
 
-dim3 grid_of(int b, int di) {
-  return dim3((di + kChannels - 1) / kChannels, b);
+dim3 grid_of(int b, int di, int channels) {
+  return dim3((di + channels - 1) / channels, b);
+}
+
+template <int kL>
+void launch_fused(const float* dt, const float* x, const float* bm,
+                  const float* c, const float* a, float* y, int b, int t,
+                  int di, int n, bool vec, cudaStream_t s) {
+  const dim3 grid = grid_of(b, di, kFusedThreads / kL);
+  if (vec)
+    selective_scan_fused_kernel<kL, true>
+        <<<grid, kFusedThreads, 0, s>>>(dt, x, bm, c, a, y, t, di, n);
+  else
+    selective_scan_fused_kernel<kL, false>
+        <<<grid, kFusedThreads, 0, s>>>(dt, x, bm, c, a, y, t, di, n);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
@@ -183,27 +414,38 @@ extern "C" int selective_scan(const void* dt, const void* bx, const void* c,
                               int n, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* bxf = static_cast<const float*>(bx);
-  const bool vec =
-      n == kMaxN && reinterpret_cast<std::uintptr_t>(bx) % 16 == 0;
-  if (vec)
-    selective_scan_kernel<true><<<grid_of(b, di), kThreads, 0, s>>>(
+  const dim3 grid = grid_of(b, di, kChannels);
+  if (n == kMaxN && aligned16(bx))
+    selective_scan_kernel<true><<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(dt), bxf, static_cast<const float*>(c),
         static_cast<const float*>(a), static_cast<float*>(y), t, di, n);
   else
-    selective_scan_kernel<false><<<grid_of(b, di), kThreads, 0, s>>>(
+    selective_scan_kernel<false><<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(dt), bxf, static_cast<const float*>(c),
         static_cast<const float*>(a), static_cast<float*>(y), t, di, n);
   return static_cast<int>(cudaGetLastError());
 }
 
+// lanes: 2 or 4 lanes a channel (fused.py:plan); anything else is refused
+// with cudaErrorInvalidValue before a launch.
 extern "C" int selective_scan_fused(const void* dt, const void* x,
                                     const void* bm, const void* c,
                                     const void* a, void* y, int b, int t,
-                                    int di, int n, void* stream) {
+                                    int di, int n, int lanes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  selective_scan_fused_kernel<<<grid_of(b, di), kThreads, 0, s>>>(
-      static_cast<const float*>(dt), static_cast<const float*>(x),
-      static_cast<const float*>(bm), static_cast<const float*>(c),
-      static_cast<const float*>(a), static_cast<float*>(y), t, di, n);
+  const auto* dtf = static_cast<const float*>(dt);
+  const auto* xf = static_cast<const float*>(x);
+  const auto* bf = static_cast<const float*>(bm);
+  const auto* cf = static_cast<const float*>(c);
+  const auto* af = static_cast<const float*>(a);
+  auto* yf = static_cast<float*>(y);
+  const bool vec = di % 4 == 0 && n == kMaxN && aligned16(dt) &&
+                   aligned16(x) && aligned16(bm) && aligned16(c);
+  if (lanes == 2)
+    launch_fused<2>(dtf, xf, bf, cf, af, yf, b, t, di, n, vec, s);
+  else if (lanes == 4)
+    launch_fused<4>(dtf, xf, bf, cf, af, yf, b, t, di, n, vec, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,8 +22,8 @@ from .. import _build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "selective_scan.cu"
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {"selective_scan": [_VP] * 5 + [_I] * 4 + [_VP],
-              "selective_scan_fused": [_VP] * 6 + [_I] * 4 + [_VP]}
-MAX_STATE = 16          # N the kernels hold: 4 lanes x 4 states a channel
+              "selective_scan_fused": [_VP] * 6 + [_I] * 5 + [_VP]}
+MAX_STATE = 16          # N the kernels hold: 16 states a channel
 MAX_BATCH = 65535       # the grid's y dimension
 
 launches: Dict[str, int] = {"selective_scan": 0}

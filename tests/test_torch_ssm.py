@@ -120,6 +120,116 @@ def test_fused_ref_matches_reference_with_bx_outside(b, t, di, n):
     np.testing.assert_allclose(_np(got), _np(want), **TOL)
 
 
+def _edge_inputs(seed, b, t, di, n, mode):
+    """_fused_inputs with chip_smoke.py's phase 9 edges: "underflow" (dt
+    500, |A| >= 0.5: every decay exp(<= -250) = 0), "zero" (dt 0: every
+    decay 1), "zero_odd_steps" (dt 0 on odd steps)."""
+    dt, x, bm, c, a = _fused_inputs(seed, b, t, di, n)
+    if mode == "underflow":
+        dt[:], a = 500.0, a - 0.5
+    elif mode == "zero":
+        dt[:] = 0.0
+    elif mode == "zero_odd_steps":
+        dt[:, 1::2] = 0.0
+    return dt, x, bm, c, a
+
+
+EDGES = [(2, 40, 96, 16, "underflow"), (2, 40, 96, 16, "zero"),
+         (2, 40, 96, 16, "zero_odd_steps"), (2, 40, 96, 1, "model"),
+         (1, 33, 37, 5, "model"), (3, 17, 100, 8, "zero_odd_steps")]
+
+
+@pytest.mark.parametrize("b,t,di,n,mode", EDGES)
+def test_fused_ref_edges_match_reference(b, t, di, n, mode):
+    """Decays all 0, all 1 or 1 on every other step, and N 1, 5, 8: the
+    plain fused scan (the CPU entry point) against the jnp oracle given
+    bx formed outside."""
+    dt, x, bm, c, a = _edge_inputs(10, b, t, di, n, mode)
+    want = jax_scan_ref(*map(jnp.asarray, (dt, _bx(dt, x, bm), c, a)))
+    got = scan_ops.selective_scan_fused(*_torch(dt, x, bm, c, a))
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    if mode == "zero":
+        assert not got.abs().max()          # h stays 0: bx = 0 every step
+    if mode == "underflow":                 # h_t = bx_t exactly
+        bx = _bx(dt, x, bm)
+        np.testing.assert_allclose(
+            _np(got), np.einsum("btdn,btn->btd", bx, c), **TOL)
+
+
+@pytest.mark.parametrize("mode", ["underflow", "zero", "zero_odd_steps"])
+def test_fused_ref_edges_match_pallas_kernel(mode):
+    args = _edge_inputs(11, 1, 64, 256, 16, mode)
+    want = pallas_fused(*map(jnp.asarray, args), interpret=True)
+    got = selective_scan_fused_ref(*_torch(*args))
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+# ----------------------------------------------------------------------
+# the fused kernel's launch shape: a plain function of B, di, SMs
+# ----------------------------------------------------------------------
+H100_SMS = 132
+# chip_smoke.py's phase 9 (b, t, di, n): the sweep, the models' widths,
+# then the fused kernel's edges
+PHASE9 = ([(1, 64, 256, 8), (2, 128, 512, 16), (1, 256, 256, 4)]
+          + [(2, t, di, 16) for t in (1, 1000, 2048) for di in (3200, 8192)]
+          + [(2, t, 3000, 16) for t in (1, 15, 16, 17, 31, 32, 33)]
+          + [(3, 70, 37, 16), (2, 40, 1000, 1), (2, 40, 1000, 5),
+             (2, 40, 1000, 8), (2, 100, 1000, 16), (1, 2048, 8192, 16)])
+
+
+def _check_plan(p, b, di):
+    assert p.lanes in fused_kernel.LANES
+    assert p.channels * p.lanes == fused_kernel.THREADS
+    assert p.channels % 4 == 0              # 16-byte copies of dt and x
+    assert p.grid == (-(-di // p.channels), b)
+    assert (p.grid[0] - 1) * p.channels < di <= p.grid[0] * p.channels
+    assert 1 <= p.grid[1] <= scan_kernel.MAX_BATCH
+    # two buffers of dt, x for the block's channels and B, C for 16
+    # states, within the 48 KiB a block has without opting in
+    assert p.smem_bytes == 4 * 2 * fused_kernel.CHUNK * (2 * p.channels
+                                                         + 32)
+    assert p.smem_bytes <= 48 * 1024
+
+
+@pytest.mark.parametrize("b,t,di,n", PHASE9)
+def test_fused_plan_for_phase9_shapes(b, t, di, n):
+    p = fused_kernel.plan(b, di, H100_SMS)
+    _check_plan(p, b, di)
+    warps = b * di * p.lanes // 32
+    if p.lanes == fused_kernel.LANES[0]:
+        assert warps >= fused_kernel.WARPS_PER_SM * H100_SMS
+    else:   # the fewest lanes did not reach WARPS_PER_SM an SM
+        assert b * di * fused_kernel.LANES[0] // 32 < \
+            fused_kernel.WARPS_PER_SM * H100_SMS
+    for lanes in fused_kernel.LANES:        # what chip_smoke.py forces
+        _check_plan(fused_kernel.shape(b, di, lanes), b, di)
+
+
+@pytest.mark.parametrize("b,di,sms,lanes,grid", [
+    (4, 8192, 132, 2, (128, 4)),        # Falcon-Mamba-7B's prefill
+    (4, 3200, 132, 2, (50, 4)),         # Hymba-1.5B's prefill
+    (1, 8192, 132, 4, (256, 1)),        # B 1 at Falcon's width
+    (4, 3200, 264, 4, (100, 4)),        # a card with twice the SMs
+    (1, 1, 132, 4, (1, 1))])
+def test_fused_plan_model_shapes(b, di, sms, lanes, grid):
+    p = fused_kernel.plan(b, di, sms)
+    assert (p.lanes, p.grid) == (lanes, grid)
+    _check_plan(p, b, di)
+
+
+@pytest.mark.parametrize("b,di,lanes", [(1, 64, 1), (1, 64, 3), (1, 64, 8),
+                                        (65536, 64, 2), (0, 64, 2),
+                                        (1, 0, 4)])
+def test_fused_shape_refuses(b, di, lanes):
+    with pytest.raises(ValueError):
+        fused_kernel.shape(b, di, lanes)
+
+
+def test_fused_plan_refuses_past_the_grid():
+    with pytest.raises(ValueError, match="rows"):
+        fused_kernel.plan(scan_kernel.MAX_BATCH + 1, 64, H100_SMS)
+
+
 # ----------------------------------------------------------------------
 # the CUDA wrappers take CUDA tensors only; the entry points CUDA or CPU
 # ----------------------------------------------------------------------
@@ -263,3 +373,17 @@ def test_scan_kernels_match_plain(card, b, t, di, n):
     np.testing.assert_allclose(
         _np(got), _np(scan_kernel.selective_scan(dt, _bx(dt, x, bm), c, a)),
         **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [2, 4])
+@pytest.mark.parametrize("b,t,di,n,mode", EDGES + [(2, 65, 3000, 16,
+                                                     "model")])
+def test_fused_kernel_lanes_match_plain(card, lanes, b, t, di, n, mode):
+    dt, x, bm, c, a = _torch(*_edge_inputs(12, b, t, di, n, mode), dev=card)
+    y = torch.empty_like(dt)
+    fused_kernel.launch(fused_kernel.shape(b, di, lanes), dt, x, bm, c, a,
+                        y)
+    want = selective_scan_fused_ref(dt, x, bm, c, a)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_np(y), _np(want), **TOL)
