@@ -7,9 +7,14 @@ Builds the port's CUDA kernels from ``src/repro_torch`` (Bloom probe, paged
 decode attention, flash attention forward, the two selective scans), one
 nvcc per source, all started together, into ``build/repro_torch/``, then:
 
-1. kernels vs plain: both CUDA launchers against their plain PyTorch
-   versions on the card, bit for bit, on adversarial keys (0, 2**64-1,
-   duplicates), random non-members and a ragged multi-filter image;
+1. kernels vs plain: both CUDA kernels against their plain PyTorch
+   versions on the card and the numpy twins, bit for bit: the
+   single-filter kernel on adversarial keys (0, 2**64-1, duplicates, the
+   top bit set) and random non-members; the pairs kernel (keys hashed on
+   the card) over a store image of filters of different widths, one of
+   one word, at 4,096 keys with k mixed 1..16 and with k 1 and 16, one
+   key, no pairs, and a filter of 2**27 - 1 words (every position wraps
+   uint32);
 2. identity: the same seeded YCSB-C cell (a closed-loop per-key probe,
    then an open loop with batched reads) at ``paper_keys // 16`` on
    ``torch_device="cuda"``, on ``torch_device="cpu"`` and on the host's
@@ -21,13 +26,17 @@ nvcc per source, all started together, into ``build/repro_torch/``, then:
    the per-key path, a closed-loop YCSB-C probe that measures the service
    rate (one probe call per read, over all its levels); then the main
    path, YCSB-C open-loop at twice that rate with ``read_batch=64`` for
-   at least 100k reads (one probe call per level of a batch).  On each
-   path every probe call of the tree must be one kernel launch: calls
-   whose pairs all name one SST launch ``bloom_probe``, the others
-   ``bloom_probe_pairs``; both kernels must launch on the main path;
+   at least 100k reads: one ``bloom_probe_pairs`` launch per
+   ``get_batch`` with a filtered pair, for all its levels, plus the
+   levels the tree re-probed at walk time (``tree.probe_calls``; such a
+   call whose pairs all name one SST launches ``bloom_probe``); every
+   launch one probe call, every read found, the store image resident;
 4. kernels at the main path's shapes: the probe calls captured in phase 3
    again through kernel, plain version and numpy, compared bit for bit,
-   and timed with CUDA events beside the least time the card could take.
+   and the read path's launch timed back to back with CUDA events beside
+   the kernel's device time, its floor (one item) and the least time the
+   card could take; the single-filter kernel on seeded calls at the main
+   path's keys a call when the main path made none.
 
 5. attention kernels vs plain: paged decode attention and flash attention
    forward against their plain PyTorch versions on the card, in fp32 and
@@ -224,11 +233,47 @@ def adversarial_keys(rng, n):
     keys[1] = np.uint64(2**64 - 1)
     keys[2] = np.uint64(2**64 - 1)
     keys[3:6] = keys[6]
+    keys[7:16] = rng.integers(2**63, 2**64, 9, dtype=np.uint64)  # top bit
     return keys
 
 
 def mismatches(got: torch.Tensor, want: torch.Tensor) -> int:
     return int((got != want).sum().item())
+
+
+def pairs_case(rng, n, per_key, slot_off, slot_words, ks):
+    """Host operands of the pairs form: ``n`` adversarial keys, each in
+    ``per_key`` pairs on random slots (the last pair on key n - 1), k
+    drawn from ``ks``."""
+    keys = adversarial_keys(rng, max(n, 16))[:n]
+    p = n * per_key
+    pair_key = rng.integers(0, n, p).astype(np.int32)
+    if p:
+        pair_key[-1] = n - 1
+    pair_slot = rng.integers(0, len(slot_off), p).astype(np.int32)
+    pair_k = np.array(ks, np.uint8)[rng.integers(0, len(ks), p)]
+    return keys, pair_key, pair_slot, pair_k
+
+
+def check_pairs(keys, pair_key, pair_slot, pair_k, slot_off, slot_words,
+                words_dev, words_host) -> dict:
+    """The pairs kernel (through its checked wrapper), its plain version
+    on the card and the numpy twin on one case."""
+    dev = words_dev.device
+    dargs = (t64(keys.view(np.int64), dev),
+             torch.from_numpy(pair_key).to(dev),
+             torch.from_numpy(pair_slot).to(dev),
+             torch.from_numpy(pair_k).to(dev), t64(slot_off, dev),
+             torch.from_numpy(slot_words).to(dev), words_dev)
+    got = kernel.bloom_probe_pairs(*dargs)
+    want = ref.bloom_probe_pairs_ref(*dargs)
+    host = filters.probe_slots_np(keys, pair_key, pair_slot, pair_k,
+                                  slot_off, slot_words, words_host)
+    return {"n": len(keys), "pairs": len(pair_key),
+            "hits": int(host.sum()),
+            "mismatch_plain": mismatches(got, want),
+            "mismatch_numpy": int((got.cpu().numpy().astype(bool)
+                                   != host).sum())}
 
 
 def phase_kernels(dev) -> dict:
@@ -255,36 +300,62 @@ def phase_kernels(dev) -> dict:
             "mismatch_numpy": int((got.cpu().numpy().astype(bool)
                                    != host).sum()),
             "no_false_negatives": bool(got[:1024].all().item())}
-    # ragged image: filters of different widths, every query x filter
-    chunks, offs, nws, cur = [], [], [], 0
-    for n in (64, 300, 1000, 10_000, 7):
+    # a store image: filters of different widths, the last of one word,
+    # and keys hashed on the card against every slot, k mixed 1..16
+    chunks, offs, nws, cur, member = [], [], [], 0, None
+    for n in (64, 300, 1000, 10_000, 7, 1):
         keys = rng.integers(0, 2**63, n).astype(np.uint64)
+        member = keys if n == 1000 else member
         nw, k = filters.filter_params(n, 10)
         lo, hi = filters.split_hash(keys)
         chunks.append(filters.build_filter_np(lo, hi, nw, k))
         offs.append(cur)
         nws.append(nw)
         cur += nw
+    check(nws[-1] == 1, "phase 1: a filter of one word")
     image = np.concatenate(chunks)
-    q = adversarial_keys(rng, 5000)
-    qlo, qhi = filters.split_hash(q)
-    p_lo, p_hi = np.tile(qlo, len(offs)), np.tile(qhi, len(offs))
-    p_off = np.repeat(np.array(offs, np.int64), len(q))
-    p_nw = np.repeat(np.array(nws, np.int32), len(q))
-    args = (t32(p_lo, dev), t32(p_hi, dev), t64(p_off, dev), t32(p_nw, dev),
-            t32(image, dev))
-    got = kernel.bloom_probe_pairs(*args, k)
-    want = ref.bloom_probe_pairs_ref(*args, k)
-    host = filters.probe_pairs_np(p_lo, p_hi, p_off, p_nw, image, k)
-    out["pairs_ragged"] = {
-        "n": len(p_lo), "mismatch_plain": mismatches(got, want),
-        "mismatch_numpy": int((got.cpu().numpy().astype(bool)
-                               != host).sum())}
+    slot_off, slot_words = np.array(offs, np.int64), np.array(nws, np.int32)
+    image_dev = t32(image, dev)
+    mixed = tuple(range(1, 17))
+    cases = {
+        "pairs_4096_keys_mixed_k": pairs_case(rng, 4096, 3, slot_off,
+                                              slot_words, mixed),
+        "pairs_k1_and_k16": pairs_case(rng, 4096, 2, slot_off, slot_words,
+                                       (1, 16)),
+        "pairs_one_key": pairs_case(rng, 1, 12, slot_off, slot_words, mixed),
+        "pairs_none": pairs_case(rng, 5, 0, slot_off, slot_words, mixed),
+    }
+    # members of slot 2's filter among the keys, so some pairs hit
+    cases["pairs_4096_keys_mixed_k"][0][16:272] = member[:256]
+    for name, (keys, pk, ps, kk) in cases.items():
+        out[name] = check_pairs(keys, pk, ps, kk, slot_off, slot_words,
+                                image_dev, image)
+    # the widest filter the kernel takes: 2**27 - 1 words (nbits 2**32 -
+    # 32, so every position wraps uint32), dense random bits (~97% set,
+    # so k up to 16 probes run to their end), and a slot inside it
+    big = 2**27 - 1
+    g = torch.Generator(device=dev).manual_seed(1)
+    words = torch.zeros(big, dtype=torch.int32, device=dev)
+    for _ in range(5):
+        words |= torch.randint(-2**31, 2**31 - 1, (big,), dtype=torch.int32,
+                               device=dev, generator=g)
+    b_off, b_words = np.array([0, 12_345], np.int64), \
+        np.array([big, 1000], np.int32)
+    keys, pk, ps, kk = pairs_case(rng, 4096, 2, b_off, b_words, mixed)
+    out["pairs_words_2pow27_minus_1"] = check_pairs(
+        keys, pk, ps, kk, b_off, b_words, words,
+        words.cpu().numpy().view(np.uint32))
+    del words
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     for name, r in out.items():
         check(r["mismatch_plain"] == 0 and r["mismatch_numpy"] == 0,
               f"phase 1 {name}: kernel == plain == numpy")
         check(r.get("no_false_negatives", True), f"phase 1 {name}: members")
+    check(out["pairs_none"]["pairs"] == 0, "phase 1: a call of no pairs")
+    check(0 < out["pairs_words_2pow27_minus_1"]["hits"]
+          < out["pairs_words_2pow27_minus_1"]["pairs"],
+          "phase 1: the widest filter both hits and misses")
     return out
 
 
@@ -340,8 +411,8 @@ def phase_identity(n_keys: int) -> dict:
           "phase 2: cuda, cpu and numpy rows equal, byte for byte")
     check(out["stats_identical"],
           "phase 2: cuda, cpu and numpy tree.stats equal")
-    check(all(launched["cuda"][k] > 0 for k in kernel.launches),
-          "phase 2: the cuda run launched both kernels")
+    check(launched["cuda"]["bloom_probe_pairs"] > 0,
+          "phase 2: the cuda run launched the pairs kernel")
     check(all(v == 0 for r in ("cpu", "numpy")
               for v in launched[r].values()),
           "phase 2: the cpu and numpy runs launched no kernel")
@@ -349,50 +420,93 @@ def phase_identity(n_keys: int) -> dict:
 
 
 class Recorder:
-    """Wraps ``filters.probe`` / ``filters.probe_pairs`` (the tree's calls
-    into the kernel package) and keeps each call's arguments, as they are:
-    the tree builds them afresh for every call and never changes them
-    after.  Nothing is computed while the path runs; ``summary`` and
-    ``kept`` read the calls afterwards."""
+    """Wraps ``filters.Prober``'s two calls (the tree's calls into the
+    kernel package) and keeps each call's arguments, as they are: the tree
+    builds them afresh for every call and never changes them after, and a
+    store image is never changed once made.  It also counts the tree's
+    ``get_batch`` calls and times its probe stage (its ``_probe_slots``
+    and ``_probe_pairs_real`` calls, a call inside another once, as
+    ``tools/route_cost.py`` does).  Nothing is computed while the path
+    runs; ``summary`` and ``kept`` read the calls afterwards."""
 
     NAMES = ("bloom_probe", "bloom_probe_pairs")
 
-    def __init__(self):
+    def __init__(self, tree):
         self.calls = {n: [] for n in self.NAMES}
-        self._orig = (filters.probe, filters.probe_pairs)
+        self.tree, self.batches = tree, 0
+        self.stage_s, self._depth = 0.0, 0
+        self._orig = (filters.Prober.probe, filters.Prober.probe_pairs)
+        self._calls0 = dict(tree.probe_calls)
+        rec, orig_batch = self, tree.get_batch
 
-    def probe(self, lo, hi, bits, k, impl="torch"):
-        self.calls["bloom_probe"].append((lo, hi, bits, k))
-        return self._orig[0](lo, hi, bits, k, impl=impl)
+        def get_batch(keys):
+            rec.batches += 1
+            return (yield from orig_batch(keys))
 
-    def probe_pairs(self, lo, hi, off, nw, bits, k, impl="torch"):
-        self.calls["bloom_probe_pairs"].append((lo, hi, off, nw, bits, k))
-        return self._orig[1](lo, hi, off, nw, bits, k, impl=impl)
+        def timed(fn):
+            def stage(*a):
+                if rec._depth:
+                    return fn(*a)
+                rec._depth, t0 = 1, time.perf_counter()
+                try:
+                    return fn(*a)
+                finally:
+                    rec.stage_s += time.perf_counter() - t0
+                    rec._depth = 0
+            return stage
+        self._tree_attrs = {
+            "get_batch": get_batch,
+            **{name: timed(getattr(tree, name))
+               for name in ("_probe_slots", "_probe_pairs_real")}}
 
     def __enter__(self):
-        filters.probe, filters.probe_pairs = self.probe, self.probe_pairs
+        rec, (single, pairs) = self, self._orig
+
+        def probe(prober, image, slot, lo, hi, k):
+            rec.calls["bloom_probe"].append((image, slot, lo, hi, k))
+            return single(prober, image, slot, lo, hi, k)
+
+        def probe_pairs(prober, image, keys, pair_key, pair_slot, pair_k):
+            rec.calls["bloom_probe_pairs"].append(
+                (image, keys, pair_key, pair_slot, pair_k))
+            return pairs(prober, image, keys, pair_key, pair_slot, pair_k)
+
+        filters.Prober.probe, filters.Prober.probe_pairs = probe, probe_pairs
+        for name, fn in self._tree_attrs.items():
+            setattr(self.tree, name, fn)
         return self
 
     def __exit__(self, *exc):
-        filters.probe, filters.probe_pairs = self._orig
+        filters.Prober.probe, filters.Prober.probe_pairs = self._orig
+        for name in self._tree_attrs:
+            delattr(self.tree, name)
+        self._calls1 = dict(self.tree.probe_calls)
 
     def counts(self) -> dict:
         return {n: len(c) for n, c in self.calls.items()}
 
+    def tree_calls(self) -> dict:
+        """The tree's probe calls of the run, by kind."""
+        return {k: v - self._calls0[k] for k, v in self._calls1.items()}
+
     def summary(self) -> dict:
-        """Probe calls, probes done (pairs) and distinct keys per call."""
-        def keys(c):
-            return len(np.unique((c[0].astype(np.uint64) << np.uint64(32))
-                                 | c[1].astype(np.uint64)))
-        every = self.calls["bloom_probe"] + self.calls["bloom_probe_pairs"]
-        n = max(1, len(every))
-        return {"probe_calls": self.counts(),
-                "pairs_probed": sum(len(c[0]) for c in every),
-                "mean_pairs_per_call": sum(len(c[0]) for c in every) / n,
-                "mean_keys_per_call": sum(keys(c) for c in every) / n,
+        """Probe calls, pairs probed and distinct keys per call."""
+        pairs, single = self.calls["bloom_probe_pairs"], \
+            self.calls["bloom_probe"]
+        keys = {"bloom_probe_pairs": [len(np.unique(c[1])) for c in pairs],
+                "bloom_probe": [len(np.unique(
+                    (c[2].astype(np.uint64) << np.uint64(32))
+                    | c[3].astype(np.uint64))) for c in single]}
+        n_pairs = sum(len(c[2]) for c in pairs) + \
+            sum(len(c[2]) for c in single)
+        n = max(1, len(pairs) + len(single))
+        return {"probe_calls": self.counts(), "tree_calls": self.tree_calls(),
+                "get_batch_calls": self.batches, "probe_stage_s": self.stage_s,
+                "pairs_probed": n_pairs,
+                "mean_pairs_per_call": n_pairs / n,
+                "mean_keys_per_call": sum(map(sum, keys.values())) / n,
                 "mean_keys_per_call_by_kernel": {
-                    name: sum(keys(c) for c in cs) / max(1, len(cs))
-                    for name, cs in self.calls.items()}}
+                    name: sum(v) / max(1, len(v)) for name, v in keys.items()}}
 
     def kept(self, name: str):
         """(sample, first): a seeded uniform sample of ``SAMPLE`` calls,
@@ -407,7 +521,7 @@ class Recorder:
 def run_path(db: DB, fn):
     """Run one path with the launch counts zeroed just before it and read
     just after: (result, launches, recorder, wall seconds)."""
-    with Recorder() as rec:
+    with Recorder(db.tree) as rec:
         kernel.reset_launches()
         t0 = time.perf_counter()
         res = fn()
@@ -431,13 +545,12 @@ def phase_main(n_keys: int):
     res, launched, rec, run_s = run_path(
         db, lambda: open_loop(db, n_keys, rate, int(MAIN_READS * 1.1)))
     row = res.to_json()
-    # every level's filter image, as the store holds it now
-    images = [db.tree._level_index(lvl)[4]
-              for lvl, ssts in enumerate(db.tree.levels) if ssts]
+    # the store's filter image, as the store holds it now
+    image = db.tree._store_image()
     image_words = sum(len(s.filter_words) for lvl in db.tree.levels
                       for s in lvl)
-    resident = sum(t.numel() * 4 for t in images
-                   if t.device.type == "cuda")
+    resident = (image.resident.n_words * 4
+                if image.resident is not None else 0)
     perkey = {"reads": probe.n_ops, "wall_s": pk_s,
               "launches": pk_launched, "filter_probes": fp1 - fp0,
               "found": hits1 - hits0, **pk_rec.summary()}
@@ -445,10 +558,15 @@ def phase_main(n_keys: int):
             "launches": launched,
             "filter_probes": stats["filter_probes"] - fp1,
             "found": stats["hits"] - hits1, **rec.summary()}
+    main["pairs_surplus"] = main["pairs_probed"] - main["filter_probes"]
+    calls = main["tree_calls"]
+    reprobes = calls["reprobe_epoch"] + calls["reprobe_mixed_k"]
+    main["reprobes"] = reprobes
     out = {
         "scheme": db.scheme, "n_keys": n_keys,
         "levels": [len(lvl) for lvl in db.tree.levels],
         "filter_words": image_words, "resident_image_bytes": resident,
+        "slots": image.resident.n_slots if resident else 0,
         "load_s": load_s, "service_rate": probe.throughput,
         "offered_rate": row["offered_rate"],
         "max_queue_depth": row["max_queue_depth"],
@@ -469,15 +587,20 @@ def phase_main(n_keys: int):
           "phase 3 per-key path: every candidate the walk met was probed "
           "on the card")
     check(main["reads"] >= MAIN_READS, "phase 3: at least 100k reads")
-    check(all(v > 0 for v in launched.values()),
-          "phase 3: both kernels launched on the main path")
-    check(main["pairs_probed"] == main["filter_probes"],
-          "phase 3: every Bloom probe of the main path went through a "
-          "kernel")
-    check(main["mean_keys_per_call"] >= 32,
+    check(launched["bloom_probe_pairs"] > 0,
+          "phase 3: the pairs kernel launched on the main path")
+    check(calls["batch"] <= main["get_batch_calls"]
+          and sum(launched.values()) == calls["batch"] + reprobes,
+          "phase 3: one launch per get_batch with a filtered pair, plus "
+          "the re-probes")
+    check(main["pairs_probed"] >= main["filter_probes"],
+          "phase 3: every Bloom probe the main path's walk counted went "
+          "through a kernel")
+    check(main["mean_keys_per_call_by_kernel"]["bloom_probe_pairs"] >= 32,
           "phase 3: at least 32 keys per batched launch")
-    check(resident == 4 * image_words,
-          "phase 3: every level's filter image is resident on the card")
+    check(resident == 4 * image_words and image.resident.n_slots
+          == sum(len(lvl) for lvl in db.tree.levels),
+          "phase 3: every SST's filter is resident on the card")
     check(all(np.isfinite(v) for v in row["latency_p"].values()),
           "phase 3: finite latencies")
     return out, row, rec, pk_rec
@@ -486,20 +609,26 @@ def phase_main(n_keys: int):
 # ----------------------------------------------------------------------
 # phase 4: the captured main-path calls, again and timed
 # ----------------------------------------------------------------------
-def touched(lo, hi, off, nw, image, k):
+OPS_PER_HASH = 14    # splitmix64: 3 shifts, 3 xors, 2 64-bit multiplies
+BYTES_PER_SLOT = 12  # a slot's int64 offset and int32 word count
+
+
+def touched(lo, hi, off, nw, ks, image):
     """(distinct words gathered, probes done) under the kernel's early
-    exit at the first clear bit."""
+    exit at the first clear bit, pair p running at most ``ks[p]``
+    probes."""
     nbits = nw.astype(np.uint32) * np.uint32(32)
-    alive = np.ones(len(lo), bool)
-    words, probes = [], 0
+    ks = np.asarray(ks, np.int64)
+    alive = ks > 0
+    words, probes = [np.zeros(0, np.int64)], 0
     with np.errstate(over="ignore"):
-        for i in range(k):
+        for i in range(int(ks.max()) if len(ks) else 0):
             pos = (lo + np.uint32(i) * hi) % nbits
             widx = off + (pos >> np.uint32(5)).astype(np.int64)
             words.append(widx[alive])
             probes += int(alive.sum())
             bit = (image[widx] >> (pos & np.uint32(31))) & np.uint32(1)
-            alive &= bit.astype(bool)
+            alive &= bit.astype(bool) & (i + 1 < ks)
     return np.unique(np.concatenate(words)).size, probes
 
 
@@ -548,79 +677,193 @@ def device_ms_each(runs: dict) -> dict:
     return out
 
 
-KERNELS = {"bloom_probe": (kernel.bloom_probe, ref.bloom_probe_ref),
+class Replay:
+    """One captured call on the card: ``check`` runs it through the
+    kernel's checked wrapper, the plain version and numpy; ``lean`` is
+    the call as the read path makes it (``launch_*`` on device addresses,
+    into an output made here), for timing; ``bound`` its least time (s)
+    in bytes and in operations."""
+
+    def __init__(self, name: str, call, host_words):
+        self.name, self.call = name, call
+        if name == "bloom_probe_pairs":
+            image, keys, pk, ps, kk = call
+            res = image.resident
+            dev = res.device
+            self.args = (t64(keys.view(np.int64), dev),
+                         torch.from_numpy(pk).to(dev),
+                         torch.from_numpy(ps).to(dev),
+                         torch.from_numpy(kk).to(dev), *image.tensors)
+            self.out = torch.empty(len(pk), dtype=torch.uint8, device=dev)
+            lo, hi = filters.split_hash(keys)
+            lo, hi = lo[pk], hi[pk]
+            off, nw = image.slot_off[ps], image.slot_words[ps]
+            self.host = (keys, pk, ps, kk, image.slot_off, image.slot_words,
+                         host_words)
+            ptrs = [t.data_ptr() for t in self.args[:4]]
+            self.lean = (res, len(keys), len(pk), *ptrs, self.out.data_ptr())
+            words, probes = touched(lo, hi, off, nw, kk, host_words)
+            in_bytes = (8 * len(keys) + 10 * len(pk)
+                        + BYTES_PER_SLOT * len(np.unique(ps)))
+            self.bound = ((in_bytes + 4 * words) / HBM_BYTES_PER_S,
+                          (OPS_PER_HASH * len(pk) + OPS_PER_PROBE * probes)
+                          / CUDA_CORE_OPS_PER_S)
+            self.items = len(pk)
+        else:
+            image, slot, lo, hi, k = call
+            res = image.resident
+            dev = res.device
+            off, nw = int(image.slot_off[slot]), int(image.slot_words[slot])
+            self.args = (t32(lo, dev), t32(hi, dev),
+                         image.words[off:off + nw], k)
+            self.out = torch.empty(len(lo), dtype=torch.int32, device=dev)
+            self.host = (lo, hi, host_words[off:off + nw], k)
+            self.lean = (res, off, nw, len(lo), self.args[0].data_ptr(),
+                         self.args[1].data_ptr(), k, self.out.data_ptr())
+            words, probes = touched(
+                lo, hi, np.zeros(len(lo), np.int64), np.full(len(lo), nw),
+                np.full(len(lo), k), host_words[off:off + nw])
+            self.bound = ((12 * len(lo) + 4 * words) / HBM_BYTES_PER_S,
+                          OPS_PER_PROBE * probes / CUDA_CORE_OPS_PER_S)
+            self.items = len(lo)
+
+    def check(self) -> tuple:
+        """(mismatches against plain and numpy, max abs difference)."""
+        fn_k, fn_p = KERNELS[self.name][:2]
+        got, want = fn_k(*self.args), fn_p(*self.args)
+        host = (filters.probe_slots_np if self.name == "bloom_probe_pairs"
+                else filters.probe_np)(*self.host)
+        mism = mismatches(got, want) + int(
+            (got.cpu().numpy().astype(bool) != host).sum())
+        worst = int((got.int() - want.int()).abs().max().item()) \
+            if got.numel() else 0
+        return mism, worst
+
+    def round_trip(self, prober) -> None:
+        """The call through ``filters.Prober`` as the tree makes it:
+        pack, copy over, launch, copy back, synchronise."""
+        if self.name == "bloom_probe_pairs":
+            prober.probe_pairs(*self.call)
+        else:
+            prober.probe(*self.call)
+
+    def one_pair(self) -> tuple:
+        """The same call cut to its first item: the launch floor."""
+        lean = list(self.lean)
+        lean[2 if self.name == "bloom_probe_pairs" else 3] = 1
+        return tuple(lean)
+
+
+# name: (checked wrapper, plain version, lean launcher)
+KERNELS = {"bloom_probe": (kernel.bloom_probe, ref.bloom_probe_ref,
+                           kernel.launch_single),
            "bloom_probe_pairs": (kernel.bloom_probe_pairs,
-                                 ref.bloom_probe_pairs_ref)}
+                                 ref.bloom_probe_pairs_ref,
+                                 kernel.launch_pairs)}
 
 
-def replay_args(name: str, args):
-    """A kept call as (kernel args on the card, the same call as host
-    pair arrays (lo, hi, off, nw, image, k), input bytes per item)."""
-    if name == "bloom_probe":
-        lo, hi, bits, k = args
-        dev = bits.device
-        off = np.zeros(len(lo), np.int64)
-        nw = np.full(len(lo), bits.shape[0], np.int64)
-        dargs, in_bytes = (t32(lo, dev), t32(hi, dev), bits), 8
-    else:
-        # the function needs 4 bytes each of offset and width (the
-        # reference's int32 word_off and uint32 num_words); the kernel
-        # reads word_off as int64, 4 bytes a pair more than the bound
-        lo, hi, off, nw, bits, k = args
-        dev = bits.device
-        dargs = (t32(lo, dev), t32(hi, dev), t64(off, dev), t32(nw, dev),
-                 bits)
-        in_bytes = 16
-    image = bits.cpu().numpy().view(np.uint32)
-    return dargs + (k,), (lo, hi, off, nw, image, k), in_bytes
+def seeded_single_calls(rec: "Recorder", n_keys: int) -> list:
+    """Single-filter calls at the main path's mean keys per pairs call,
+    for when the main path made none: seeded store keys (the reads' key
+    space) against random slots of the main path's last store image, with
+    each slot's k."""
+    pairs = rec.calls["bloom_probe_pairs"]
+    image = pairs[-1][0]
+    n = max(1, round(rec.summary()["mean_keys_per_call_by_kernel"]
+                     ["bloom_probe_pairs"]))
+    rng = np.random.default_rng(7)
+    calls = []
+    for _ in range(SAMPLE):
+        slot = int(rng.integers(len(image.slot_k)))
+        lo, hi = filters.split_hash(
+            rng.integers(0, n_keys, n).astype(np.uint64))
+        calls.append((image, slot, lo, hi, int(image.slot_k[slot])))
+    return calls
+
+
+def round_trip_ms(timed: list, reps: int = 5) -> float:
+    """Host time of one probe call through a ``filters.Prober``, each
+    ending in its stream's synchronise (after one warm-up pass)."""
+    prober = filters.Prober()
+    for r in timed:
+        r.round_trip(prober)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for r in timed:
+            r.round_trip(prober)
+    return 1e3 * (time.perf_counter() - t0) / (reps * len(timed))
 
 
 def phase_captured(rec: Recorder, pk_rec: Recorder, launched: dict,
-                   pk_launched: dict) -> list:
+                   pk_launched: dict, n_keys: int) -> list:
     """Every kept call of both paths is checked against the plain version
     and numpy; the main path's sampled calls are also timed, so the times
-    and bounds are those of its mix of shapes.  The bound of a call is the
-    larger of its bytes (inputs once, the hit mask once, each distinct
-    filter word the early-exit probe reads once) over HBM bandwidth and
-    its integer operations over the CUDA-core rate."""
+    and bounds are those of its mix of shapes (the single-filter kernel's
+    at seeded calls of the main path's keys a call when the main path
+    made none).  ``ms`` times the read path's launch (``launch_*`` on
+    device addresses) back to back with CUDA events; ``device_ms`` is the
+    profiler's time of the kernel alone and ``floor_ms`` the same for one
+    item (``one_item_ms`` the back-to-back time at one item: the launch
+    path alone; ``round_trip_ms`` the host time of the whole call through
+    ``filters.Prober``: pack, copies, launch, synchronise).  The bound of
+    a call is the larger of its bytes (keys 8 a key, pairs 9 in and 1
+    out, slots 12 each, the single form 12 a key, each distinct filter
+    word the early-exit probe reads 4) over HBM bandwidth and its integer
+    operations (a hash 14, a probe 8) over the CUDA-core rate."""
     kernels = []
-    for name, (fn_k, fn_p) in KERNELS.items():
-        calls, t_bytes, t_ops, n_items, worst, mism = [], [], [], 0, 0, 0
+    host_words = {}
+
+    def words_of(image):
+        if id(image) not in host_words:
+            host_words[id(image)] = (image, image.words.cpu().numpy()
+                                     .view(np.uint32))
+        return host_words[id(image)][1]
+
+    for name, (_, fn_p, fn_lean) in KERNELS.items():
         sample, first = rec.kept(name)
+        seeded = not sample
+        if seeded:
+            sample = seeded_single_calls(rec, n_keys)
         kept = sample + first + [c for part in pk_rec.kept(name)
                                  for c in part]
-        for j, args in enumerate(kept):
-            dargs, host, in_bytes = replay_args(name, args)
-            got, want = fn_k(*dargs), fn_p(*dargs)
-            mism += mismatches(got, want)
-            mism += int((got.cpu().numpy().astype(bool)
-                         != filters.probe_pairs_np(*host)).sum())
-            worst = max(worst, int((got - want).abs().max().item()))
+        mism, worst = 0, 0
+        timed = []
+        for j, call in enumerate(kept):
+            r = Replay(name, call, words_of(call[0]))
+            m, w = r.check()
+            mism, worst = mism + m, max(worst, w)
             if j < len(sample):
-                words, probes = touched(*host)
-                n = len(host[0])
-                t_bytes.append((n * (in_bytes + 4) + 4 * words)
-                               / HBM_BYTES_PER_S)
-                t_ops.append(OPS_PER_PROBE * probes / CUDA_CORE_OPS_PER_S)
-                n_items += n
-                calls.append(dargs)
-        check(len(calls) > 0, f"phase 4: {name} calls captured")
+                timed.append(r)
+        check(len(timed) > 0, f"phase 4: {name} calls timed")
         check(mism == 0, f"phase 4: {name} kernel == plain == numpy on "
               "the captured inputs of both paths")
+        t_bytes = [r.bound[0] for r in timed]
+        t_ops = [r.bound[1] for r in timed]
+        lean = [r.lean for r in timed]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launched[name],
             "launches_per_key_path": pk_launched[name],
+            "seeded_calls": seeded,
             "mismatches": mism, "max_abs_err": worst,
-            "ms": cuda_ms(fn_k, calls, 50),
-            "plain_ms": cuda_ms(fn_p, calls, 5),
+            "ms": cuda_ms(fn_lean, lean, 50),
+            "checked_ms": cuda_ms(lambda r: KERNELS[name][0](*r.args),
+                                  [(r,) for r in timed], 10),
+            "plain_ms": cuda_ms(fn_p, [r.args for r in timed], 5),
             "bound_ms": 1e3 * float(np.mean(np.maximum(t_bytes, t_ops))),
             "bound_by": ("bytes" if np.mean(t_bytes) >= np.mean(t_ops)
                          else "operations"),
             "library_ms": None,
-            "device_ms": device_ms(fn_k, calls, f"{name}_kernel"),
-            "checked_calls": len(kept), "timed_calls": len(calls),
-            "mean_items_per_call": n_items / len(calls)})
+            "device_ms": device_ms(fn_lean, lean, f"{name}_kernel"),
+            "floor_ms": device_ms(fn_lean, [timed[0].one_pair()] * 50,
+                                  f"{name}_kernel"),
+            # the same back to back at one item: the launch path alone
+            "one_item_ms": cuda_ms(fn_lean, [r.one_pair() for r in timed],
+                                   50),
+            "round_trip_ms": round_trip_ms(timed),
+            "checked_calls": len(kept), "timed_calls": len(timed),
+            "mean_items_per_call": float(np.mean([r.items for r in timed]))})
+    host_words.clear()
     return kernels
 
 
@@ -1804,7 +2047,8 @@ def merge_flash(kernels: list, by_model: dict, variants: dict) -> None:
 def timings(card: str, kernels: list) -> dict:
     return {"card": card, "kernels": [
         {k: v for k, v in d.items() if k in (
-            "name", "ms", "plain_ms", "device_ms", "bound_ms",
+            "name", "ms", "plain_ms", "device_ms", "floor_ms",
+            "one_item_ms", "round_trip_ms", "checked_ms", "bound_ms",
             "bound_sfu_ms", "library_ms",
             "timed_calls", "mean_items_per_call", "mean_context",
             "mean_prompt", "by_model")}
@@ -1851,7 +2095,8 @@ def main() -> int:
     if 4 in phases:
         kernels += phase_captured(rec, pk_rec,
                                   main_out["main_path"]["launches"],
-                                  main_out["perkey_path"]["launches"])
+                                  main_out["perkey_path"]["launches"],
+                                  paper_keys)
         emit(phase4=timings(card, kernels))
     if 5 in phases:
         emit(phase5=phase_attention_kernels(dev), card=card)

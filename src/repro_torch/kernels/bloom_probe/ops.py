@@ -14,24 +14,28 @@ from . import bloom_probe as kernel
 from .ref import bloom_probe_pairs_ref, bloom_probe_ref
 
 
+def _route(words: torch.Tensor) -> str:
+    if words.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no Bloom probe for tensors on {words.device}")
+    return words.device.type
+
+
 def probe(lo: torch.Tensor, hi: torch.Tensor, bits: torch.Tensor,
           k: int = 7) -> torch.Tensor:
     """Probe one packed filter (int32[W]) with int32 hash halves
     -> int32[N] hit mask."""
-    if bits.device.type == "cuda":
+    if _route(bits) == "cuda":
         return kernel.bloom_probe(lo, hi, bits, k)
-    if bits.device.type != "cpu":
-        raise ValueError(f"no Bloom probe for tensors on {bits.device}")
     return bloom_probe_ref(lo, hi, bits, k)
 
 
-def probe_pairs(lo: torch.Tensor, hi: torch.Tensor, word_off: torch.Tensor,
-                num_words: torch.Tensor, bits_concat: torch.Tensor,
-                k: int = 7) -> torch.Tensor:
-    """Ragged (key x filter) pairs probe -> int32[P] hit mask."""
-    if bits_concat.device.type == "cuda":
-        return kernel.bloom_probe_pairs(lo, hi, word_off, num_words,
-                                        bits_concat, k)
-    if bits_concat.device.type != "cpu":
-        raise ValueError(f"no Bloom probe for tensors on {bits_concat.device}")
-    return bloom_probe_pairs_ref(lo, hi, word_off, num_words, bits_concat, k)
+def probe_pairs(keys: torch.Tensor, pair_key: torch.Tensor,
+                pair_slot: torch.Tensor, pair_k: torch.Tensor,
+                slot_off: torch.Tensor, slot_words: torch.Tensor,
+                words: torch.Tensor) -> torch.Tensor:
+    """(key x filter) pairs probe, keys hashed inside -> uint8[P] hit
+    mask (operands as ``ref.bloom_probe_pairs_ref``)."""
+    args = (keys, pair_key, pair_slot, pair_k, slot_off, slot_words, words)
+    if _route(words) == "cuda":
+        return kernel.bloom_probe_pairs(*args)
+    return bloom_probe_pairs_ref(*args)

@@ -1,30 +1,58 @@
 """Plain PyTorch version of the Bloom probe and of filter construction.
 
-Hash family (shared bit-for-bit with the CUDA kernel and the numpy path
-in ``repro_torch.lsm.filters``): keys are splitmix64-hashed host-side in
-numpy, the hash is split into uint32 halves ``lo`` / ``hi`` (hi forced
-odd), and probe position ``i`` is Kirsch-Mitzenmacher double hashing
-``(lo + i*hi) mod (num_words*32)`` in wrapping uint32 arithmetic.
+Hash family (shared bit-for-bit with the CUDA kernels and the numpy path
+in ``repro_torch.lsm.filters``): keys are hashed with the splitmix64
+finaliser, the hash is split into uint32 halves ``lo`` / ``hi`` (hi
+forced odd), and probe position ``i`` is Kirsch-Mitzenmacher double
+hashing ``(lo + i*hi) mod (num_words*32)`` in wrapping uint32 arithmetic.
+The single-filter probe takes the halves hashed by the caller; the pairs
+probe takes raw keys and hashes them itself (:func:`mix64`), as its
+kernel does on the card.
 
-PyTorch on the CPU has no uint32 ``+``, ``%`` or ``>>``, so uint32 values
-travel as int32 tensors (the same bits) and every step here computes in
-int64 with ``& 0xFFFFFFFF`` masking, which reproduces the wrapping uint32
-results exactly.  The k probe positions are formed at once as an [N, k]
-tensor; a key hits when all k bits are set.
+PyTorch on the CPU has no uint32 or uint64 ``+``, ``%`` or ``>>``, so
+uint32 values travel as int32 tensors and uint64 keys as int64 tensors
+(the same bits).  uint32 steps compute in int64 with ``& 0xFFFFFFFF``
+masking; the 64-bit hash computes in int64, whose multiplies wrap like
+uint64 ones, with every right shift made logical by masking off the
+copied sign bits.  The k probe positions are formed at once as an
+[N, k] tensor; a key hits when all its k bits are set.
 
 This is the version the wrappers in ``ops`` take for tensors on the CPU,
-and the one ``chip_smoke.py`` holds the kernel against on the card.
+and the one ``chip_smoke.py`` holds the kernels against on the card.
 """
 from __future__ import annotations
 
 import torch
 
 _M32 = 0xFFFFFFFF
+# splitmix64's multipliers as int64 (the same 64 bits)
+_C1 = 0xBF58476D1CE4E5B9 - 2**64
+_C2 = 0x94D049BB133111EB - 2**64
 
 
 def _u32(x: torch.Tensor) -> torch.Tensor:
     """int32 tensor holding uint32 bits -> int64 tensor of the uint32 value."""
     return x.to(torch.int64) & _M32
+
+
+def _shr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bits (torch's ``>>`` is arithmetic)."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def mix64(keys: torch.Tensor) -> torch.Tensor:
+    """splitmix64 finaliser of uint64 keys held as int64 -> int64 hashes
+    with the same bits as ``repro_torch.lsm.sstable._mix64``."""
+    x = keys.to(torch.int64)
+    x = (x ^ _shr(x, 30)) * _C1
+    x = (x ^ _shr(x, 27)) * _C2
+    return x ^ _shr(x, 31)
+
+
+def split_hash(keys: torch.Tensor):
+    """(lo, hi) uint32 halves of the keys' hashes, as int64 values."""
+    h = mix64(keys)
+    return h & _M32, _shr(h, 32) | 1
 
 
 def _positions(lo: torch.Tensor, hi: torch.Tensor, nbits,
@@ -71,17 +99,28 @@ def bloom_probe_ref(lo: torch.Tensor, hi: torch.Tensor, bits: torch.Tensor,
     return _gather_bits(bits, pos).all(dim=1).to(torch.int32)
 
 
-def bloom_probe_pairs_ref(lo: torch.Tensor, hi: torch.Tensor,
-                          word_off: torch.Tensor, num_words: torch.Tensor,
-                          bits_concat: torch.Tensor,
-                          k_hashes: int = 7) -> torch.Tensor:
-    """Ragged (key x filter) pairs probe -> int32[P] hit mask.
+def bloom_probe_pairs_ref(keys: torch.Tensor, pair_key: torch.Tensor,
+                          pair_slot: torch.Tensor, pair_k: torch.Tensor,
+                          slot_off: torch.Tensor, slot_words: torch.Tensor,
+                          words: torch.Tensor) -> torch.Tensor:
+    """Pairs probe -> uint8[P] hit mask.
 
-    Pair ``p`` tests the filter of ``num_words[p]`` words starting at
-    ``word_off[p]`` in the concatenated image ``bits_concat``: the batched
-    LSM read path's shape (one call over every candidate pair of a
-    level)."""
-    nbits = ((num_words.to(torch.int64) * 32) & _M32)[:, None]
-    pos = _positions(lo, hi, nbits, k_hashes)
-    off = word_off.to(torch.int64)[:, None]
-    return _gather_bits(bits_concat, pos, off).all(dim=1).to(torch.int32)
+    Pair ``p`` hashes ``keys[pair_key[p]]`` (uint64 bits in int64) and
+    tests its first ``pair_k[p]`` positions in the filter of slot
+    ``pair_slot[p]``: ``slot_words`` words from ``slot_off`` in the
+    concatenated image ``words`` (``num_words * 32`` wraps as uint32, as
+    in the reference).  The batched LSM read path's shape: every
+    candidate pair of a batch, over all levels, in one call."""
+    p = pair_key.shape[0]
+    if p == 0:
+        return torch.zeros(0, dtype=torch.uint8, device=words.device)
+    lo, hi = split_hash(keys[pair_key.long()])
+    slot = pair_slot.long()
+    nbits = ((slot_words[slot].to(torch.int64) * 32) & _M32)[:, None]
+    k = pair_k.to(torch.int64)
+    kmax = int(k.max())
+    i = torch.arange(kmax, dtype=torch.int64, device=words.device)
+    pos = ((lo[:, None] + i[None, :] * hi[:, None]) & _M32) % nbits
+    bit = _gather_bits(words, pos, slot_off[slot][:, None])
+    bit = bit | (i[None, :] >= k[:, None]).to(torch.int64)
+    return bit.all(dim=1).to(torch.uint8)

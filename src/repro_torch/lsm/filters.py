@@ -4,30 +4,34 @@ Every SST carries a packed uint32 bit array built from its key set
 (``filter_bits_per_key`` bits per key, ``k = round(bits_per_key * ln 2)``
 probe positions).  The hash family is shared across every implementation:
 
-* keys are pre-hashed **host-side** in numpy with the splitmix64
-  finaliser (``sstable._mix64``), as the reference does;
+* keys are hashed with the splitmix64 finaliser (``sstable._mix64``): on
+  the host in numpy to build filters and for the single-filter probe, on
+  the card inside the pairs kernel;
 * the 64-bit hash is split into two uint32 halves ``lo = h & 0xffffffff``
   and ``hi = (h >> 32) | 1`` (forced odd so the probe stride cycles);
 * probe position ``i`` is Kirsch-Mitzenmacher double hashing,
   ``pos_i = (lo + i * hi) mod (num_words * 32)``, computed in wrapping
   uint32 arithmetic — bit-for-bit identical in the numpy path here, the
   plain PyTorch version (``repro_torch.kernels.bloom_probe.ref``) and the
-  CUDA kernel (``repro_torch.kernels.bloom_probe``).
+  CUDA kernels (``repro_torch.kernels.bloom_probe``).
 
-Filters are built on the host with numpy.  Probes take one of two routes
-(``impl``): ``"torch"`` (the default) hands int32 tensors to
-``repro_torch.kernels.bloom_probe.ops`` on the device of the filter
-image, ``"numpy"`` runs the numpy path.  Across the two the hit masks are
-identical (``tests/test_torch_filters.py``).
+Filters are built on the host with numpy.  A store probes against one
+:class:`StoreImage` of all its filters with a slot per SST, through a
+:class:`Prober`, on one of two routes (``impl``): ``"torch"`` (the
+default; the image lives on the store's torch device, the CUDA kernels on
+a card, the plain PyTorch version on the CPU) or ``"numpy"`` (the numpy
+twins here).  Across the routes the hit masks are identical
+(``tests/test_torch_filters.py``).
 """
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..kernels.bloom_probe import bloom_probe as kernel
 from ..kernels.bloom_probe import ops
 from .sstable import SST, _mix64
 
@@ -101,24 +105,28 @@ def probe_np(lo: np.ndarray, hi: np.ndarray, bits: np.ndarray,
     return hit
 
 
-def probe_pairs_np(lo: np.ndarray, hi: np.ndarray, word_off: np.ndarray,
-                   num_words: np.ndarray, bits_concat: np.ndarray,
-                   k_hashes: int) -> np.ndarray:
-    """Probe P (key x filter) pairs in one vectorized call.
-
-    ``bits_concat`` is the concatenation of every candidate SST's filter
-    words; pair ``p`` probes the ``num_words[p]`` words starting at
-    ``word_off[p]``.  This is the ragged form the batched read path needs:
-    each key may probe a different filter per level.
-    """
-    nbits = (num_words.astype(np.uint32) * np.uint32(32))
-    off = word_off.astype(np.int64)
-    hit = np.ones(lo.shape, dtype=bool)
+def probe_slots_np(keys: np.ndarray, pair_key: np.ndarray,
+                   pair_slot: np.ndarray, pair_k: np.ndarray,
+                   slot_off: np.ndarray, slot_words: np.ndarray,
+                   words: np.ndarray) -> np.ndarray:
+    """The pairs kernel's function in numpy: pair ``p`` hashes
+    ``keys[pair_key[p]]`` and tests ``pair_k[p]`` positions in the filter
+    of slot ``pair_slot[p]`` (``slot_words`` words from ``slot_off`` in
+    ``words``) -> bool[P]."""
+    lo, hi = split_hash(keys)
+    key = np.asarray(pair_key, dtype=np.int64)
+    slot = np.asarray(pair_slot, dtype=np.int64)
+    k = np.asarray(pair_k, dtype=np.int64)
+    lo, hi = lo[key], hi[key]
+    nbits = slot_words[slot].astype(np.uint32) * np.uint32(32)
+    off = slot_off[slot].astype(np.int64)
+    hit = np.ones(len(key), dtype=bool)
     with np.errstate(over="ignore"):
-        for i in range(k_hashes):
+        for i in range(int(k.max()) if len(k) else 0):
             pos = (lo + np.uint32(i) * hi) % nbits
-            w = bits_concat[off + (pos >> np.uint32(5)).astype(np.int64)]
-            hit &= ((w >> (pos & np.uint32(31))) & np.uint32(1)).astype(bool)
+            w = words[off + (pos >> np.uint32(5)).astype(np.int64)]
+            bit = ((w >> (pos & np.uint32(31))) & np.uint32(1)).astype(bool)
+            hit &= bit | (i >= k)
     return hit
 
 
@@ -135,7 +143,7 @@ def probe_one_np(key: int, bits: np.ndarray, k_hashes: int) -> bool:
 
 
 # ----------------------------------------------------------------------
-# torch route (kernel package): filter images live on a torch device
+# the store image and the probe routes
 # ----------------------------------------------------------------------
 def resolve_impl(impl: str) -> str:
     """Validate a probe route name: ``"torch"`` or ``"numpy"``."""
@@ -155,40 +163,159 @@ def device_words(words: np.ndarray, device) -> torch.Tensor:
     return _int32_tensor(words, torch.device(device))
 
 
-def probe(lo: np.ndarray, hi: np.ndarray, bits, k_hashes: int,
-          impl: str = "torch") -> np.ndarray:
-    """Probe one filter (numpy uint32 words, or an int32 tensor from
-    :func:`device_words` under ``impl="torch"``) -> bool[N].  Under
-    ``"torch"`` the hash halves travel to the image's device in one copy."""
-    if resolve_impl(impl) == "torch":
-        n = len(lo)
-        host = np.empty(2 * n, dtype=np.uint32)
-        host[:n], host[n:] = lo, hi
-        buf = _int32_tensor(host, bits.device)
-        out = ops.probe(buf[:n], buf[n:], bits, k_hashes)
-        return out.cpu().numpy().astype(bool)
-    return probe_np(lo, hi, bits, k_hashes)
+class StoreImage:
+    """Every filtered SST of a store in one image, with a slot table: slot
+    ``slot[sid]`` is that SST's filter, ``slot_words`` words from
+    ``slot_off``, built with ``slot_k`` probes.  The slot table is kept on
+    the host (numpy) for building a call's operands.  On the numpy route
+    (``device`` None) ``words`` is a uint32 array; on the torch route an
+    int32 tensor on ``device``, with the slot table beside it in
+    ``tensors`` (``slot_off``, ``slot_words``, ``words``) and, on a CUDA
+    device, ``resident``: the same tensors as a ``kernel.Image``, checked
+    once here."""
+
+    __slots__ = ("slot", "slot_off", "slot_words", "slot_k", "words",
+                 "tensors", "resident")
+
+    def __init__(self, chunks: list, entries: Sequence[Tuple[int, int, int,
+                                                             int]],
+                 device: Optional[torch.device] = None):
+        """``chunks``: the levels' images in order; ``entries``: (sid,
+        word offset in the joined image, num_words, k) per filtered SST."""
+        self.slot = {e[0]: s for s, e in enumerate(entries)}
+        self.slot_off = np.array([e[1] for e in entries], dtype=np.int64)
+        self.slot_words = np.array([e[2] for e in entries], dtype=np.int32)
+        self.slot_k = np.array([e[3] for e in entries], dtype=np.uint8)
+        self.tensors = self.resident = None
+        if device is None:
+            self.words = (np.concatenate(chunks) if chunks
+                          else np.zeros(0, dtype=np.uint32))
+            return
+        self.words = (torch.cat(chunks) if chunks
+                      else torch.zeros(0, dtype=torch.int32, device=device))
+        self.tensors = (torch.from_numpy(self.slot_off).to(device),
+                        torch.from_numpy(self.slot_words).to(device),
+                        self.words)
+        if device.type == "cuda":
+            self.resident = kernel.Image(self.words, *self.tensors[:2])
+
+    def slots_of(self, ssts: Sequence[SST]) -> np.ndarray:
+        """int32 slot of each SST, -1 for an SST without a filter."""
+        return np.fromiter((self.slot.get(s.sid, -1) for s in ssts),
+                           np.int32, len(ssts))
+
+    def filter_words(self, slot: int):
+        """Slot ``slot``'s filter as a view of the image."""
+        off = int(self.slot_off[slot])
+        return self.words[off:off + int(self.slot_words[slot])]
 
 
-def probe_pairs(lo, hi, word_off, num_words, bits_concat, k_hashes,
-                impl: str = "torch") -> np.ndarray:
-    """Ragged pairs probe on the selected route.  Under ``"torch"`` the
-    image ``bits_concat`` is a device tensor (:func:`device_words`); the
-    per-call arrays go to its device in one copy (``word_off`` as int64,
-    ``lo``, ``hi`` and ``num_words`` as int32) and only the hit mask comes
-    back."""
-    if resolve_impl(impl) == "torch":
+def _aligned(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+class Prober:
+    """Runs a store's probe calls on the route of the image it is given:
+    numpy for a numpy image, the plain PyTorch version (``ops``) for a CPU
+    tensor image, the CUDA kernels for a resident image.
+
+    On the card every call goes through one pinned host staging buffer and
+    one device buffer, kept for the store's life and grown by doubling
+    (``cudaHostAlloc`` takes milliseconds, so never per call): the call's
+    operands are packed into the pinned buffer, one ``non_blocking`` copy
+    moves them to the card, the kernel writes into the device buffer, one
+    ``non_blocking`` copy brings the hit mask back into pinned memory, and
+    one synchronise of the stream precedes the read.  The next call writes
+    the pinned buffer only after that synchronise, so reuse is safe on one
+    stream."""
+
+    def __init__(self):
+        self._cap, self._index = 0, None
+        self._host = self._host_np = self._dev = None
+        self._dev_ptr = 0
+
+    def _reserve(self, nbytes: int, image) -> None:
+        if nbytes <= self._cap and self._index == image.index:
+            return
+        cap = max(4096, self._cap if self._index == image.index else 0)
+        while cap < nbytes:
+            cap *= 2
+        self._host = torch.empty(cap, dtype=torch.uint8, pin_memory=True)
+        self._host_np = self._host.numpy()
+        self._dev = torch.empty(cap, dtype=torch.uint8, device=image.device)
+        self._dev_ptr, self._cap, self._index = \
+            self._dev.data_ptr(), cap, image.index
+
+    def _round_trip(self, res, n_in: int, out: int, n_out: int,
+                    launch) -> np.ndarray:
+        """Copy the ``n_in`` packed bytes to the card, ``launch(base)`` (the
+        device buffer's address), copy ``n_out`` result bytes at offset
+        ``out`` back and wait for them: a view of the pinned buffer, valid
+        until the next call."""
+        self._dev[:n_in].copy_(self._host[:n_in], non_blocking=True)
+        launch(self._dev_ptr)
+        self._host[out:out + n_out].copy_(self._dev[out:out + n_out],
+                                          non_blocking=True)
+        torch.cuda.current_stream(res.index).synchronize()
+        return self._host_np[out:out + n_out]
+
+    def probe_pairs(self, image: StoreImage, keys: np.ndarray,
+                    pair_key: np.ndarray, pair_slot: np.ndarray,
+                    pair_k: np.ndarray) -> np.ndarray:
+        """Hits of pair ``p``: ``keys[pair_key[p]]`` (uint64) probed with
+        ``pair_k[p]`` (uint8) positions in slot ``pair_slot[p]`` (int32)'s
+        filter -> bool[P].  Keys are hashed once each, on the card on the
+        torch route."""
+        res = image.resident
+        if res is None:
+            if image.tensors is None:
+                return probe_slots_np(keys, pair_key, pair_slot, pair_k,
+                                      image.slot_off, image.slot_words,
+                                      image.words)
+            t = torch.from_numpy
+            out = ops.probe_pairs(t(keys.view(np.int64)), t(pair_key),
+                                  t(pair_slot), t(pair_k), *image.tensors)
+            return out.numpy().astype(bool)
+        n, p = len(keys), len(pair_key)
+        a = 8 * n
+        b = a + 4 * p
+        c = b + 4 * p
+        d = c + p
+        o = _aligned(d)
+        self._reserve(o + p, res)
+        h = self._host_np
+        h[:a].view(np.uint64)[:] = keys
+        h[a:b].view(np.int32)[:] = pair_key
+        h[b:c].view(np.int32)[:] = pair_slot
+        h[c:d] = pair_k
+        return self._round_trip(res, d, o, p, lambda base: kernel.launch_pairs(
+            res, n, p, base, base + a, base + b, base + c, base + o)
+        ).astype(bool)
+
+    def probe(self, image: StoreImage, slot: int, lo: np.ndarray,
+              hi: np.ndarray, k: int) -> np.ndarray:
+        """Probe slot ``slot``'s filter alone with keys hashed on the host
+        (uint32 halves ``lo``, ``hi``) and ``k`` positions -> bool[N]."""
+        res = image.resident
+        if res is None:
+            bits = image.filter_words(slot)
+            if image.tensors is None:
+                return probe_np(lo, hi, bits, k)
+            out = ops.probe(_int32_tensor(lo, bits.device),
+                            _int32_tensor(hi, bits.device), bits, k)
+            return out.numpy().astype(bool)
         n = len(lo)
-        host = np.empty(5 * n, dtype=np.uint32)
-        host[:2 * n].view(np.int64)[:] = word_off
-        host[2 * n:3 * n], host[3 * n:4 * n] = lo, hi
-        host[4 * n:] = num_words
-        buf = _int32_tensor(host, bits_concat.device)
-        out = ops.probe_pairs(buf[2 * n:3 * n], buf[3 * n:4 * n],
-                              buf[:2 * n].view(torch.int64), buf[4 * n:],
-                              bits_concat, k_hashes)
-        return out.cpu().numpy().astype(bool)
-    return probe_pairs_np(lo, hi, word_off, num_words, bits_concat, k_hashes)
+        o = _aligned(8 * n)
+        self._reserve(o + 4 * n, res)
+        h = self._host_np
+        h[:4 * n].view(np.uint32)[:] = lo
+        h[4 * n:8 * n].view(np.uint32)[:] = hi
+        off, nw = int(image.slot_off[slot]), int(image.slot_words[slot])
+        return self._round_trip(res, 8 * n, o, 4 * n, lambda base:
+                                kernel.launch_single(res, off, nw, n, base,
+                                                     base + 4 * n, k,
+                                                     base + o)
+                                ).view(np.int32).astype(bool)
 
 
 # ----------------------------------------------------------------------

@@ -12,15 +12,17 @@ interference with background jobs) is accounted per operation.
 
 Bloom probes run on a torch device (``torch_device``, the CUDA card by
 default): each level's concatenated filter image is uploaded once per
-membership epoch and stays resident there, so a read ships only its
-pre-hashed keys and the candidates' filter offsets and brings back a hit
-mask.  A batched read makes one probe call per level; a per-key read makes
-one for all its levels.  Under ``LSMConfig.filter_impl="numpy"`` probes
-stay on the host.
+membership epoch, and the levels' images joined into one store image with
+a slot table, which stays resident there.  A batched read ships its raw
+keys and each (key x candidate SST) pair's key index, slot and k, and
+brings back a hit mask: one probe call for all its levels, keys hashed on
+the card.  A per-key read makes one call for all its levels.  Under
+``LSMConfig.filter_impl="numpy"`` the same calls run on the host.
 """
 from __future__ import annotations
 
 from bisect import bisect_right
+from itertools import accumulate
 from dataclasses import dataclass, field
 from typing import Dict, Generator, List, Optional, Set, Tuple
 
@@ -155,6 +157,12 @@ class LSMTree:
         self._level_epoch: List[int] = [0] * (cfg.num_levels + 2)
         self._ridx: Dict[int, Tuple] = {}
         self._simg: Optional[Tuple] = None   # see _store_image
+        self._prober = filters.Prober()
+        # probe calls of the batched read: one per batch with a filtered
+        # pair, plus the levels re-probed at walk time (see get_batch);
+        # kept apart from ``stats``, which stay the reference's
+        self.probe_calls: Dict[str, int] = {
+            "batch": 0, "reprobe_epoch": 0, "reprobe_mixed_k": 0}
 
     # ------------------------------------------------------------------
     def _on_evict(self, sst_id: int, block_idx: int) -> None:
@@ -608,9 +616,10 @@ class LSMTree:
         """Read index for one level, rebuilt only when the level's
         membership epoch moves (SST install/remove): candidate SSTs in
         lookup order, their key ranges as plain ints / a sorted uint64
-        array for bisection, and the level's concatenated filter image
-        for the vectorized batch probe — under ``filter_impl="torch"`` an
-        int32 tensor uploaded to ``torch_device`` here, once per epoch.
+        array for bisection, whether its filtered SSTs mix ``filter_k``
+        values (see get_batch), and the level's concatenated
+        filter image — under ``filter_impl="torch"`` an int32 tensor
+        uploaded to ``torch_device`` here, once per epoch.
 
         L0 files overlap, so they are ordered newest-first by ``birth`` —
         the list's install order is NOT trustworthy (after ``DB.reopen()``
@@ -630,18 +639,20 @@ class LSMTree:
             mins = [s.min_key for s in ssts]
             mins_np = np.array(mins, dtype=np.uint64)
         maxs = [s.max_key for s in ssts]
+        mixed_k = len({s.filter_k for s in ssts
+                       if s.filter_words is not None}) > 1
         bits, offsets = (filters.concat_filters(ssts)
                          if self.cfg.filters == "real" else (None, None))
         if bits is not None and self.cfg.filter_impl == "torch":
             bits = filters.device_words(bits, self.torch_device)
-        idx = (ssts, mins, mins_np, maxs, bits, offsets)
+        idx = (ssts, mins, mins_np, maxs, mixed_k, bits, offsets)
         self._ridx[lvl] = (self._level_epoch[lvl], idx)
         return idx
 
     def _level_candidates(self, lvl: int, key: int) -> List[SST]:
         """SSTs of level ``lvl`` whose range covers ``key``, in lookup
         order (see _level_index for the ordering contract)."""
-        ssts, mins, _, maxs, _, _ = self._level_index(lvl)
+        ssts, mins, _, maxs = self._level_index(lvl)[:4]
         if lvl == 0:
             return [s for s in ssts if s.min_key <= key <= s.max_key]
         j = bisect_right(mins, key) - 1
@@ -649,43 +660,81 @@ class LSMTree:
             return [ssts[j]]
         return []
 
-    def _store_image(self):
-        """(image, {sid: (word_off, num_words)}) over every level: the
-        levels' resident images from ``_level_index`` joined on their
-        device (no upload), for the per-key read's single probe call.
-        Rebuilt only when some level's membership epoch moves."""
+    def _level_pairs(self, lvl: int, keys: List[int],
+                     pending: List[int]) -> List[List[SST]]:
+        """Candidate SSTs of level ``lvl`` for each pending key, in lookup
+        order; deeper levels are disjoint, so one searchsorted over the
+        whole batch replaces per-key range scans."""
+        ssts, _, mins_np, maxs = self._level_index(lvl)[:4]
+        if lvl == 0:
+            return [[s for s in ssts if s.min_key <= keys[i] <= s.max_key]
+                    for i in pending]
+        karr = np.fromiter((keys[i] for i in pending), np.uint64,
+                           len(pending))
+        pos = np.searchsorted(mins_np, karr, side="right") - 1
+        return [[ssts[j]] if j >= 0 and keys[i] <= maxs[j] else []
+                for i, j in zip(pending, pos.tolist())]
+
+    def _store_image(self) -> filters.StoreImage:
+        """Every level's filters in one :class:`filters.StoreImage` with a
+        slot per filtered SST: on the torch route the levels' resident
+        images from ``_level_index`` joined on their device (no upload),
+        the slot table uploaded beside them.  Rebuilt only when some
+        level's membership epoch moves."""
         epochs = tuple(self._level_epoch[:len(self.levels)])
         if self._simg is not None and self._simg[0] == epochs:
             return self._simg[1]
-        chunks, offsets, base = [], {}, 0
-        for lvl, ssts in enumerate(self.levels):
-            if not ssts:
+        chunks, entries, base = [], [], 0
+        for lvl, level in enumerate(self.levels):
+            if not level:
                 continue
-            bits, level_offsets = self._level_index(lvl)[4:]
-            for sid, (off, nw) in level_offsets.items():
-                offsets[sid] = (base + off, nw)
+            ssts, *_, bits, offsets = self._level_index(lvl)
+            entries += [(s.sid, base + offsets[s.sid][0],
+                         offsets[s.sid][1], s.filter_k)
+                        for s in ssts if s.sid in offsets]
             chunks.append(bits)
             base += bits.shape[0]
-        image = (torch.cat(chunks) if chunks else
-                 torch.zeros(0, dtype=torch.int32, device=self.torch_device))
-        self._simg = (epochs, (image, offsets))
-        return image, offsets
+        image = filters.StoreImage(
+            chunks, entries,
+            self.torch_device if self.cfg.filter_impl == "torch" else None)
+        self._simg = (epochs, image)
+        return image
+
+    def _probe_slots(self, keys: np.ndarray, pair_key: np.ndarray,
+                     pair_ssts: List[SST],
+                     k: Optional[int] = None) -> np.ndarray:
+        """One probe call against the store image: pair ``p`` is
+        ``keys[pair_key[p]]`` (``keys`` uint64, ``pair_key`` int32) against
+        ``pair_ssts[p]``, with the SST's own ``filter_k``, or with ``k``
+        for every pair when given.  Filterless SSTs (built under another
+        mode) pass without a probe; no call is made when every pair's SST
+        is filterless."""
+        image = self._store_image()
+        slot = image.slots_of(pair_ssts)
+        sel = slot >= 0
+        full = bool(sel.all())
+        if not full:
+            if not sel.any():
+                return np.ones(len(pair_ssts), dtype=bool)
+            pair_key, slot = pair_key[sel], slot[sel]
+        pair_k = (image.slot_k[slot] if k is None
+                  else np.full(len(slot), k, dtype=np.uint8))
+        got = self._prober.probe_pairs(image, keys, pair_key, slot, pair_k)
+        if full:
+            return got
+        hits = np.ones(len(pair_ssts), dtype=bool)
+        hits[sel] = got
+        return hits
 
     def _probe_key(self, key: int, ssts: List[SST]) -> Dict[int, bool]:
         """Real-filter hits {sid: hit} of one key against filtered SSTs on
-        the torch route, in one call against the store image (one call per
-        distinct ``filter_k``, so each SST is probed with its own k)."""
-        hits: Dict[int, bool] = {}
+        the torch route, in one call against the store image, each SST
+        probed with its own ``filter_k``."""
         if not ssts:
-            return hits
-        bits, offsets = self._store_image()
-        for k in sorted({s.filter_k for s in ssts}):
-            group = [s for s in ssts if s.filter_k == k]
-            got = self._probe_pairs_real(
-                np.full(len(group), key, dtype=np.uint64), group, bits,
-                offsets)
-            hits.update(zip((s.sid for s in group), got.tolist()))
-        return hits
+            return {}
+        got = self._probe_slots(np.array([key], dtype=np.uint64),
+                                np.zeros(len(ssts), dtype=np.int32), ssts)
+        return dict(zip((s.sid for s in ssts), got.tolist()))
 
     def _key_hits(self, key: int) -> Dict[int, bool]:
         """The per-key read's filter hits on the torch route: the key's
@@ -760,11 +809,20 @@ class LSMTree:
         Result-identical to per-key :meth:`get` (asserted across every
         scheme by ``tests/test_differential.py``): the same newest-first
         lookup order, the same block I/O per surviving candidate.  The
-        difference is *how* candidates are found and probed — per level,
-        the (key x candidate-SST) pairs of all still-unresolved keys are
-        filtered in one vectorized Bloom call (a ``bloom_probe`` kernel on
-        a CUDA ``torch_device``, its plain version on the CPU, or numpy, per
-        ``LSMConfig.filter_impl``), and only survivors reach the block
+        difference is *how* candidates are found and probed: under real
+        filters the (key x candidate-SST) pairs of every level are probed
+        before the walk in one call (``_batch_hits``: the
+        ``bloom_probe_pairs`` kernel on a CUDA ``torch_device``, its plain
+        version on the CPU, or numpy, per ``LSMConfig.filter_impl``), and
+        the walk goes level by level through the precomputed hits, counting
+        in ``stats["filter_probes"]`` only the pairs of keys still pending
+        there, as the reference's per-level calls do.  A level is probed
+        again at walk time, with the reference's per-level call
+        (``_probe_pairs_real``), when its membership epoch moved since the
+        batch's call (a flush or compaction ran while the walk waited on
+        I/O) or when its filtered SSTs do not share one ``filter_k`` (the
+        reference probes a level's pending pairs with their largest k);
+        ``probe_calls`` counts both.  Only survivors reach the block
         cache / backend."""
         n = len(keys)
         self.stats["gets"] += n
@@ -777,56 +835,53 @@ class LSMTree:
             else:
                 pending.append(i)
         real = self.cfg.filters == "real"
+        plan, batch_hits = (self._batch_hits(keys, pending)
+                            if real and pending else ({}, None))
         for lvl in range(len(self.levels)):
             if not pending:
                 break
             if not self.levels[lvl]:
                 continue
-            idx = self._level_index(lvl)
-            ssts, _, mins_np, maxs, bits, offsets = idx
-            # candidate pairs, grouped per key in lookup order; deeper
-            # levels are disjoint, so one searchsorted over the whole
-            # batch replaces per-key range scans
-            pair_of: List[List[SST]] = []
-            if lvl == 0:
-                for i in pending:
-                    k = keys[i]
-                    pair_of.append([s for s in ssts
-                                    if s.min_key <= k <= s.max_key])
+            got = plan.get(lvl)
+            if got is not None and got[0] == self._level_epoch[lvl]:
+                cands, first = got[1], got[2]
+                pair_of = [cands[i] for i in pending]
+                at = [first[i] for i in pending]
+                hits = batch_hits
             else:
-                karr = np.fromiter((keys[i] for i in pending),
-                                   np.uint64, len(pending))
-                pos = np.searchsorted(mins_np, karr, side="right") - 1
-                for t, i in enumerate(pending):
-                    j = int(pos[t])
-                    pair_of.append([ssts[j]] if j >= 0
-                                   and keys[i] <= maxs[j] else [])
-            flat = [(i, sst) for i, cands in zip(pending, pair_of)
-                    for sst in cands]
-            if not flat:
+                pair_of = self._level_pairs(lvl, keys, pending)
+                flat = [(i, sst) for i, c in zip(pending, pair_of)
+                        for sst in c]
+                if not flat:
+                    continue
+                at = list(accumulate((len(c) for c in pair_of[:-1]),
+                                     initial=0))
+                if real:
+                    mixed_k = self._level_index(lvl)[4]
+                    self.probe_calls["reprobe_mixed_k" if mixed_k
+                                     else "reprobe_epoch"] += 1
+                    hits = self._probe_pairs_real(
+                        np.array([keys[i] for i, _ in flat],
+                                 dtype=np.uint64), [s for _, s in flat])
+                else:
+                    hits = [sst.bloom_maybe_contains(keys[i],
+                                                     self.cfg.bloom_fp_rate)
+                            for i, sst in flat]
+            n_pairs = sum(len(c) for c in pair_of)
+            if not n_pairs:
                 continue
-            if real:
-                hits = self._probe_pairs_real(
-                    np.array([keys[i] for i, _ in flat], dtype=np.uint64),
-                    [sst for _, sst in flat], bits, offsets)
-            else:
-                hits = [sst.bloom_maybe_contains(keys[i],
-                                                 self.cfg.bloom_fp_rate)
-                        for i, sst in flat]
             # walk survivors per key in candidate order, stopping at the
             # first exact hit — byte-identical I/O to the per-key path
-            self.stats["filter_probes"] += len(flat)
-            cursor = 0
+            self.stats["filter_probes"] += n_pairs
             still: List[int] = []
-            for i, cands in zip(pending, pair_of):
+            for i, cands_i, a in zip(pending, pair_of, at):
                 key = keys[i]
-                for j, sst in enumerate(cands):
-                    if results[i] is not None or not hits[cursor + j]:
+                for j, sst in enumerate(cands_i):
+                    if results[i] is not None or not hits[a + j]:
                         continue
                     res = yield from self._probe_sst(sst, key)
                     if res is not None:
                         results[i] = res
-                cursor += len(cands)
                 if results[i] is None:
                     still.append(i)
             pending = still
@@ -834,35 +889,60 @@ class LSMTree:
             results[i] = (False, None)
         return results
 
+    def _batch_hits(self, keys: List[int], pending: List[int]):
+        """The batched read's one probe call: the candidates of every
+        pending key on every level whose filtered SSTs share one
+        ``filter_k``, probed against the store image with each pair's
+        level k, keys sent once each.  Returns ({lvl: (epoch, cands,
+        first)}, hits), where ``cands[i]`` are key ``i``'s candidates on
+        the level and ``first[i]`` the index of its first pair in
+        ``hits``."""
+        plan: Dict[int, Tuple] = {}
+        pair_key: List[int] = []
+        pair_ssts: List[SST] = []
+        n = len(keys)
+        for lvl, level in enumerate(self.levels):
+            if not level or self._level_index(lvl)[4]:    # mixed filter_k
+                continue
+            cands: List = [()] * n
+            first = [0] * n
+            for t, (i, c) in enumerate(zip(pending, self._level_pairs(
+                    lvl, keys, pending))):
+                if c:
+                    cands[i], first[i] = c, len(pair_ssts)
+                    pair_key += [t] * len(c)
+                    pair_ssts += c
+            plan[lvl] = (self._level_epoch[lvl], cands, first)
+        if not pair_ssts:
+            return plan, None
+        hits = self._probe_slots(
+            np.fromiter((keys[i] for i in pending), np.uint64, len(pending)),
+            np.array(pair_key, dtype=np.int32), pair_ssts)
+        self.probe_calls["batch"] += 1
+        return plan, hits
+
     def _probe_pairs_real(self, pair_keys: np.ndarray,
-                          pair_ssts: List[SST], bits,
-                          offsets: Dict) -> np.ndarray:
-        """Vectorized real-filter probe over (key, SST) pairs against a
-        filter image (a level's from ``_level_index``, or the store's from
-        ``_store_image``; resident on ``torch_device`` under the torch
-        route): only the pairs' hash halves and filter offsets travel, and
-        the hit mask comes back.  One ``k = max(filter_k)`` for every pair,
-        as in the reference.  Pairs that all name one SST probe its filter
-        alone (the single-filter kernel: no per-pair offsets); others take
-        the ragged pairs kernel."""
-        # filterless SSTs (built under another mode) always pass
-        hits = np.ones(len(pair_ssts), dtype=bool)
-        mask = np.array([s.sid in offsets for s in pair_ssts], dtype=bool)
-        if not mask.any():
+                          pair_ssts: List[SST]) -> np.ndarray:
+        """The reference's per-level call, against the store image: every
+        pair probed with ``k = max(filter_k)`` of the pairs' filtered
+        SSTs, as in the reference.  Pairs that all name one SST probe its
+        filter alone (the single-filter kernel, keys hashed on the host);
+        others take the pairs kernel."""
+        image = self._store_image()
+        slot = image.slots_of(pair_ssts)
+        sel = slot >= 0
+        if not sel.any():
+            return np.ones(len(pair_ssts), dtype=bool)
+        k = int(image.slot_k[slot[sel]].max())
+        if (slot[sel] == slot[sel][0]).all():
+            hits = np.ones(len(pair_ssts), dtype=bool)
+            lo, hi = filters.split_hash(pair_keys[sel])
+            hits[sel] = self._prober.probe(image, int(slot[sel][0]), lo, hi,
+                                           k)
             return hits
-        lo, hi = filters.split_hash(pair_keys[mask])
-        sel = [s for s in pair_ssts if s.sid in offsets]
-        k = max(s.filter_k for s in sel)
-        if all(s.sid == sel[0].sid for s in sel):
-            off, nw = offsets[sel[0].sid]
-            hits[mask] = filters.probe(lo, hi, bits[off:off + nw], k,
-                                       impl=self.cfg.filter_impl)
-            return hits
-        off = np.array([offsets[s.sid][0] for s in sel], dtype=np.int64)
-        nw = np.array([offsets[s.sid][1] for s in sel], dtype=np.int32)
-        hits[mask] = filters.probe_pairs(lo, hi, off, nw, bits, k,
-                                         impl=self.cfg.filter_impl)
-        return hits
+        return self._probe_slots(pair_keys,
+                                 np.arange(len(pair_keys), dtype=np.int32),
+                                 pair_ssts, k)
 
     def scan(self, start_key: int, count: int) -> Generator:
         """Range scan over [start, start+count): reads the covering blocks

@@ -22,6 +22,7 @@ from repro.kernels.bloom_probe.ref import (  # noqa: E402
     bloom_probe_pairs_ref as jax_pairs_ref, bloom_probe_ref as jax_probe_ref,
     build_filter as jax_build_filter)
 from repro.lsm import filters as ref_filters  # noqa: E402
+from repro.lsm.sstable import _mix64 as ref_mix64  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.bloom_probe import bloom_probe as kernel  # noqa: E402
 from repro_torch.kernels.bloom_probe import ops, ref  # noqa: E402
@@ -54,28 +55,87 @@ def _queries(rng, member):
         rng.integers(0, 2**64, 1532, dtype=np.uint64)])  # 2048: Pallas block
 
 
-def _ragged_image(rng, sizes=(64, 300, 1000, 7), bits_per_key=10):
-    """Several filters of different widths concatenated, as one LSM level
-    image, plus every query x filter pair over it."""
-    built, offs, cur = [], [], 0
+def _i64(keys):
+    """uint64 numpy keys -> int64 CPU tensor with the same bits."""
+    return torch.from_numpy(np.ascontiguousarray(keys, np.uint64)
+                            .view(np.int64))
+
+
+# (filter sizes in keys, extra slots' num_words pointing into the image,
+# queries, pairs a query, the pairs' k: a fixed k or "mixed" over 1..16)
+SLOT_CASES = {
+    "several_slots_mixed_k": ((64, 300, 1000, 7), (), 400, 3, "mixed"),
+    "k1_and_k16": ((300, 1000), (), 200, 2, (1, 16)),
+    "one_word": ((1,), (), 64, 1, "mixed"),
+    # num_words * 32 wraps uint32 to 96 bits: the reference's own wrap
+    "num_words_wraps": ((300,), (2**27 + 3,), 200, 2, "mixed"),
+    "no_pairs": ((64,), (), 5, 0, "mixed"),
+}
+
+
+def _slot_case(rng, sizes, extra_words, n_queries, per_query, ks):
+    """The pairs form's operands: a store image of filters of ``sizes``
+    keys (10 bits a key) plus slots of ``extra_words`` words at offset 0,
+    and ``per_query`` pairs for each query (members of the second filter,
+    0, 2**63, 2**64-1 and random keys), each on a random slot."""
+    chunks, offs, nws, kk, cur, members = [], [], [], [], 0, []
     for n in sizes:
         keys = _adversarial_keys(rng, n) if n >= 7 else \
             rng.integers(0, 2**63, n).astype(np.uint64)
-        nw, k = ref_filters.filter_params(n, bits_per_key)
+        nw, k = ref_filters.filter_params(n, 10)
         lo, hi = ref_filters.split_hash(keys)
-        built.append((ref_filters.build_filter_np(lo, hi, nw, k), nw, keys))
+        chunks.append(ref_filters.build_filter_np(lo, hi, nw, k))
         offs.append(cur)
+        nws.append(nw)
+        kk.append(k)
+        members.append(keys)
         cur += nw
-    image = np.concatenate([b for b, _, _ in built])
-    queries = np.concatenate([built[1][2][:100],
-                              rng.integers(0, 2**64, 400, dtype=np.uint64)])
-    qlo, qhi = ref_filters.split_hash(queries)
-    nf = len(built)
-    p_lo, p_hi = np.tile(qlo, nf), np.tile(qhi, nf)
-    p_off = np.repeat(np.array(offs, np.int64), len(queries))
-    p_nw = np.repeat(np.array([nw for _, nw, _ in built], np.int64),
-                     len(queries))
-    return p_lo, p_hi, p_off, p_nw, image, k
+    for nw in extra_words:
+        offs.append(0)
+        nws.append(nw)
+        kk.append(7)
+    words = np.concatenate(chunks)
+    queries = np.concatenate([
+        members[min(1, len(members) - 1)][:n_queries // 4],
+        np.array([0, 2**63, 2**63 + 1, 2**64 - 1], np.uint64),
+        rng.integers(0, 2**64, n_queries, dtype=np.uint64)])[:n_queries]
+    p = n_queries * per_query
+    pair_key = rng.integers(0, n_queries, p).astype(np.int32)
+    if p:
+        pair_key[-1] = n_queries - 1
+    pair_slot = rng.integers(0, len(offs), p).astype(np.int32)
+    if ks == "mixed":
+        pair_k = rng.integers(1, 17, p).astype(np.uint8)
+    else:
+        pair_k = np.array(ks, np.uint8)[rng.integers(0, len(ks), p)]
+    return (queries, pair_key, pair_slot, pair_k,
+            np.array(offs, np.int64), np.array(nws, np.int32), words)
+
+
+def _pairs_by_jax(keys, pair_key, pair_slot, pair_k, slot_off, slot_words,
+                  words):
+    """The JAX package's pairs reference on the same pairs: keys hashed
+    on its side, slots expanded to (word_off, num_words), one call per
+    distinct k."""
+    lo, hi = ref_filters.split_hash(keys)
+    lo, hi = lo[pair_key], hi[pair_key]
+    off = slot_off[pair_slot].astype(np.int32)
+    nw = slot_words[pair_slot].astype(np.uint32)
+    out = np.zeros(len(pair_key), bool)
+    for k in np.unique(pair_k):
+        m = pair_k == k
+        out[m] = np.asarray(jax_pairs_ref(
+            jnp.array(lo[m]), jnp.array(hi[m]), jnp.array(off[m]),
+            jnp.array(nw[m]), jnp.array(words), k_hashes=int(k))).astype(bool)
+    return out
+
+
+def _slot_tensors(case):
+    keys, pair_key, pair_slot, pair_k, slot_off, slot_words, words = case
+    return (_i64(keys), torch.from_numpy(pair_key),
+            torch.from_numpy(pair_slot), torch.from_numpy(pair_k),
+            torch.from_numpy(slot_off), torch.from_numpy(slot_words),
+            _t32(words))
 
 
 # ----------------------------------------------------------------------
@@ -87,6 +147,24 @@ def test_hash_split_and_params_match_reference():
     for n, bpk in [(1, 1), (64, 10), (4096, 4), (10_000, 16)]:
         assert filters.filter_params(n, bpk) == \
             ref_filters.filter_params(n, bpk)
+
+
+def test_plain_mix64_matches_reference():
+    """splitmix64 in int64 torch arithmetic == the JAX package's
+    ``_mix64`` and ``split_hash``, bit for bit, on keys across the whole
+    uint64 range (0, 2**63 and up, 2**64-1)."""
+    rng = np.random.default_rng(21)
+    keys = np.concatenate([
+        np.array([0, 1, 2**31, 2**32, 2**63 - 1, 2**63, 2**63 + 1,
+                  2**64 - 2, 2**64 - 1], np.uint64),
+        rng.integers(0, 2**64, 4096, dtype=np.uint64),
+        rng.integers(2**63, 2**64, 1024, dtype=np.uint64)])
+    got = ref.mix64(_i64(keys)).numpy().view(np.uint64)
+    assert np.array_equal(got, ref_mix64(keys))
+    lo, hi = ref.split_hash(_i64(keys))
+    want_lo, want_hi = ref_filters.split_hash(keys)
+    assert np.array_equal(lo.numpy(), want_lo.astype(np.int64))
+    assert np.array_equal(hi.numpy(), want_hi.astype(np.int64))
 
 
 @pytest.mark.parametrize("bits_per_key,n", [(10, 1024), (4, 2048), (16, 512)])
@@ -130,76 +208,108 @@ def test_single_probe_matches_reference(bits_per_key):
     assert want[:512].all(), "a Bloom filter never gives false negatives"
 
 
-def test_pairs_probe_matches_reference():
-    """Ragged pairs over a multi-filter image: plain PyTorch == jnp
-    reference == numpy pairs path == per-filter single probes."""
+@pytest.mark.parametrize("case", list(SLOT_CASES))
+def test_pairs_probe_matches_reference(case):
+    """The pairs form (keys hashed inside, a slot and a k a pair): plain
+    PyTorch == the JAX package's jnp pairs reference (grouped by k) ==
+    the numpy twin == the JAX package's numpy pairs path == per-filter
+    single probes."""
     rng = np.random.default_rng(11)
-    p_lo, p_hi, p_off, p_nw, image, k = _ragged_image(rng)
-    want = ref_filters.probe_pairs_np(p_lo, p_hi, p_off, p_nw, image, k)
-    got_torch = ref.bloom_probe_pairs_ref(
-        _t32(p_lo), _t32(p_hi), torch.from_numpy(p_off),
-        torch.from_numpy(p_nw), _t32(image), k)
-    got_jax = np.asarray(jax_pairs_ref(
-        jnp.array(p_lo), jnp.array(p_hi), jnp.array(p_off.astype(np.int32)),
-        jnp.array(p_nw.astype(np.uint32)), jnp.array(image), k_hashes=k))
+    args = _slot_case(rng, *SLOT_CASES[case])
+    keys, pair_key, pair_slot, pair_k, slot_off, slot_words, words = args
+    want = _pairs_by_jax(*args)
+    got_torch = ref.bloom_probe_pairs_ref(*_slot_tensors(args))
+    assert got_torch.dtype == torch.uint8
+    assert got_torch.shape == (len(pair_key),)
     assert np.array_equal(got_torch.numpy().astype(bool), want)
-    assert np.array_equal(got_jax.astype(bool), want)
-    singles = np.concatenate([
-        ref_filters.probe_np(p_lo[i:i + 1], p_hi[i:i + 1],
-                             image[p_off[i]:p_off[i] + p_nw[i]], k)
-        for i in range(0, len(p_lo), 97)])
-    assert np.array_equal(want[::97], singles)
+    assert np.array_equal(filters.probe_slots_np(*args), want)
+    lo, hi = ref_filters.split_hash(keys)
+    for k in np.unique(pair_k):
+        m = pair_k == k
+        assert np.array_equal(ref_filters.probe_pairs_np(
+            lo[pair_key[m]], hi[pair_key[m]], slot_off[pair_slot[m]],
+            slot_words[pair_slot[m]], words, int(k)), want[m])
+    for p in range(0, len(pair_key), 37):
+        s_, k = pair_slot[p], int(pair_k[p])
+        if slot_words[s_] < 2**27:
+            bits = words[slot_off[s_]:slot_off[s_] + slot_words[s_]]
+            one = ref_filters.probe_np(lo[pair_key[p]:pair_key[p] + 1],
+                                       hi[pair_key[p]:pair_key[p] + 1],
+                                       bits, k)
+            assert one[0] == want[p]
+    if case == "several_slots_mixed_k":
+        assert want.any() and not want.all()
 
 
 def test_ops_take_plain_version_for_cpu_tensors():
     rng = np.random.default_rng(5)
-    p_lo, p_hi, p_off, p_nw, image, k = _ragged_image(rng)
+    args = _slot_case(rng, *SLOT_CASES["several_slots_mixed_k"])
     before = dict(kernel.launches)
-    got = ops.probe_pairs(_t32(p_lo), _t32(p_hi), torch.from_numpy(p_off),
-                          torch.from_numpy(p_nw), _t32(image), k)
-    want = ref_filters.probe_pairs_np(p_lo, p_hi, p_off, p_nw, image, k)
-    assert got.dtype == torch.int32 and got.device.type == "cpu"
-    assert np.array_equal(got.numpy().astype(bool), want)
-    first = image[:p_nw[0]]
-    got1 = ops.probe(_t32(p_lo), _t32(p_hi), _t32(first), k)
+    got = ops.probe_pairs(*_slot_tensors(args))
+    assert got.dtype == torch.uint8 and got.device.type == "cpu"
+    assert np.array_equal(got.numpy().astype(bool),
+                          filters.probe_slots_np(*args))
+    keys, slot_off, slot_words, words = args[0], args[4], args[5], args[6]
+    lo, hi = ref_filters.split_hash(keys)
+    first = words[:slot_words[0]]
+    got1 = ops.probe(_t32(lo), _t32(hi), _t32(first), 7)
+    assert got1.dtype == torch.int32
     assert np.array_equal(got1.numpy().astype(bool),
-                          ref_filters.probe_np(p_lo, p_hi, first, k))
+                          ref_filters.probe_np(lo, hi, first, 7))
     assert kernel.launches == before, "CPU tensors must not count launches"
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    """The CUDA wrappers take CUDA tensors only: on CPU tensors they raise
-    instead of computing anything."""
+    """The CUDA wrappers and the resident image take CUDA tensors only: on
+    CPU tensors they raise instead of computing anything."""
     lo = torch.zeros(4, dtype=torch.int32)
     bits = torch.ones(8, dtype=torch.int32)
-    off = torch.zeros(4, dtype=torch.int64)
+    keys = torch.zeros(4, dtype=torch.int64)
+    off = torch.zeros(2, dtype=torch.int64)
+    nw = torch.full((2,), 4, dtype=torch.int32)
+    pk = torch.zeros(4, dtype=torch.uint8) + 3
     with pytest.raises(ValueError, match="CUDA"):
         kernel.bloom_probe(lo, lo, bits, 3)
     with pytest.raises(ValueError, match="CUDA"):
-        kernel.bloom_probe_pairs(lo, lo, off, off + 8, bits, 3)
+        kernel.bloom_probe_pairs(keys, lo, lo, pk, off, nw, bits)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.Image(bits, off, nw)
+    before = dict(kernel.launches)
+    image = filters.StoreImage([bits], [(1, 0, 4, 3), (2, 4, 4, 3)],
+                               torch.device("cpu"))
+    assert image.resident is None and image.tensors is not None
+    assert kernel.launches == before
 
 
-def test_filters_torch_route_matches_numpy_route():
+@pytest.mark.parametrize("case", ["several_slots_mixed_k", "one_word",
+                                  "no_pairs"])
+def test_filters_torch_route_matches_numpy_route(case):
+    """A store image and prober on the torch route (CPU tensors) and on
+    the numpy route give the same hits as the JAX package's numpy path,
+    in the pairs form and the single-filter form."""
     rng = np.random.default_rng(9)
-    p_lo, p_hi, p_off, p_nw, image, k = _ragged_image(rng)
-    dev_image = filters.device_words(image, "cpu")
-    assert dev_image.dtype == torch.int32
-    a = filters.probe_pairs(p_lo, p_hi, p_off, p_nw, dev_image, k,
-                            impl="torch")
-    b = filters.probe_pairs(p_lo, p_hi, p_off, p_nw, image, k, impl="numpy")
-    c = ref_filters.probe_pairs(p_lo, p_hi, p_off, p_nw, image, k,
-                                impl="numpy")
-    assert a.dtype == np.bool_ and np.array_equal(a, b)
-    assert np.array_equal(a, c)
-    first = image[:p_nw[0]]
-    s_t = filters.probe(p_lo, p_hi, filters.device_words(first, "cpu"), k,
-                        impl="torch")
-    s_n = filters.probe(p_lo, p_hi, first, k, impl="numpy")
-    assert np.array_equal(s_t, s_n)
-    keys = np.concatenate([np.array([0, 2**64 - 1], np.uint64),
-                           rng.integers(0, 2**64, 64, dtype=np.uint64)])
-    assert [filters.probe_one_np(int(x), first, k) for x in keys] == \
-        [ref_filters.probe_one_np(int(x), first, k) for x in keys]
+    args = _slot_case(rng, *SLOT_CASES[case])
+    keys, pair_key, pair_slot, pair_k, slot_off, slot_words, words = args
+    entries = [(100 + s_, int(o), int(nw), int(k)) for s_, (o, nw, k) in
+               enumerate(zip(slot_off, slot_words, [7] * len(slot_off)))]
+    by_route = {"numpy": filters.StoreImage([words], entries),
+                "torch": filters.StoreImage(
+                    [filters.device_words(words, "cpu")], entries,
+                    torch.device("cpu"))}
+    assert by_route["torch"].words.dtype == torch.int32
+    prober = filters.Prober()
+    want = _pairs_by_jax(*args)
+    lo, hi = ref_filters.split_hash(keys)
+    for image in by_route.values():
+        assert image.slot == {100 + s_: s_ for s_ in range(len(entries))}
+        got = prober.probe_pairs(image, keys, pair_key, pair_slot, pair_k)
+        assert got.dtype == np.bool_ and np.array_equal(got, want)
+        single = prober.probe(image, 0, lo, hi, 7)
+        assert np.array_equal(single, ref_filters.probe_np(
+            lo, hi, words[:slot_words[0]], 7))
+    first = words[:slot_words[0]]
+    assert [filters.probe_one_np(int(x), first, 7) for x in keys] == \
+        [ref_filters.probe_one_np(int(x), first, 7) for x in keys]
 
 
 def test_resolve_impl_routes():
@@ -255,8 +365,8 @@ def test_kernel_matches_plain(card):
     args = (_t32(qlo), _t32(qhi), _t32(bits))
     got = kernel.bloom_probe(*(a.to(card) for a in args), k)
     assert torch.equal(got.cpu(), ref.bloom_probe_ref(*args, k))
-    p_lo, p_hi, p_off, p_nw, image, k = _ragged_image(rng)
-    args = (_t32(p_lo), _t32(p_hi), torch.from_numpy(p_off),
-            torch.from_numpy(p_nw.astype(np.int32)), _t32(image))
-    got = kernel.bloom_probe_pairs(*(a.to(card) for a in args), k)
-    assert torch.equal(got.cpu(), ref.bloom_probe_pairs_ref(*args, k))
+    for case in ("several_slots_mixed_k", "k1_and_k16", "one_word",
+                 "no_pairs"):
+        args = _slot_tensors(_slot_case(rng, *SLOT_CASES[case]))
+        got = kernel.bloom_probe_pairs(*(a.to(card) for a in args))
+        assert torch.equal(got.cpu(), ref.bloom_probe_pairs_ref(*args))

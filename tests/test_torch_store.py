@@ -103,13 +103,17 @@ def test_store_matches_reference(filter_impl):
 
 def test_level_images_resident_and_identical():
     """The port keeps each level's filter image as an int32 tensor on its
-    torch device, bit-identical to the reference's numpy image; reference
-    SSTs converted with ``from_reference_sst_arrays`` probe identically."""
+    torch device, bit-identical to the reference's numpy image, and joins
+    them into one store image whose slots are the reference's offsets;
+    reference SSTs converted with ``from_reference_sst_arrays`` probe
+    identically through a store image of their own."""
     ref, port = _pair()
     _fill([ref, port], n=600, key_space=400)
     rng = np.random.default_rng(1)
     queries = rng.integers(0, 500, 300).astype(np.uint64)
-    checked = 0
+    store = port.tree._store_image()
+    prober = filters.Prober()
+    checked, base = 0, 0
     for lvl in range(len(ref.tree.levels)):
         if not ref.tree.levels[lvl]:
             continue
@@ -119,21 +123,37 @@ def test_level_images_resident_and_identical():
         assert p_bits.dtype == torch.int32 and p_bits.device.type == "cpu"
         assert np.array_equal(p_bits.numpy().view(np.uint32), r_bits)
         assert p_off == r_off
+        for sid, (off, nw) in r_off.items():
+            slot = store.slot[sid]
+            assert (store.slot_off[slot], store.slot_words[slot]) == \
+                (base + off, nw)
+        base += len(r_bits)
         conv = [filters.from_reference_sst_arrays(
             s.keys, s.tombs, s.filter_words, s.filter_k, sid=s.sid,
             level=s.level) for s in r_ssts]
         c_bits, c_off = filters.concat_filters(conv)
         assert c_off == r_off and np.array_equal(c_bits, r_bits)
         k = max(s.filter_k for s in conv)
-        lo, hi = filters.split_hash(np.tile(queries, len(conv)))
-        off = np.repeat([c_off[s.sid][0] for s in conv], len(queries))
-        nw = np.repeat([c_off[s.sid][1] for s in conv], len(queries))
-        got = filters.probe_pairs(lo, hi, off, nw,
-                                  filters.device_words(c_bits, "cpu"), k)
+        image = filters.StoreImage(
+            [filters.device_words(c_bits, "cpu")],
+            [(s.sid, *c_off[s.sid], s.filter_k) for s in conv],
+            torch.device("cpu"))
+        pair_slot = np.repeat(np.arange(len(conv), dtype=np.int32),
+                              len(queries))
+        pair_key = np.tile(np.arange(len(queries), dtype=np.int32),
+                           len(conv))
+        got = prober.probe_pairs(image, queries, pair_key, pair_slot,
+                                 np.full(len(pair_key), k, np.uint8))
+        lo, hi = filters.split_hash(queries[pair_key])
+        off = np.array([c_off[s.sid][0] for s in conv])[pair_slot]
+        nw = np.array([c_off[s.sid][1] for s in conv])[pair_slot]
         want = ref_filters.probe_pairs_np(lo, hi, off, nw, r_bits, k)
         assert np.array_equal(got, want)
         checked += 1
     assert checked >= 2, "the fill should populate several levels"
+    assert np.array_equal(store.words.numpy().view(np.uint32), np.concatenate(
+        [ref.tree._level_index(lvl)[-2] for lvl, ssts in
+         enumerate(ref.tree.levels) if ssts]))
 
 
 @pytest.fixture
@@ -193,24 +213,51 @@ def test_filter_hit_probes_an_sst_the_read_has_not_seen():
 
 
 def test_one_filter_calls_take_the_single_filter_probe(probe_calls):
-    """Probe calls whose pairs all name one SST go through the
-    single-filter entry point, the others through the pairs entry point;
-    both agree with numpy."""
+    """The per-level call (``_probe_pairs_real``) goes through the
+    single-filter entry point when its pairs all name one SST, the pairs
+    entry point otherwise; both agree with numpy."""
     _, port = _pair()
     _fill([port], n=600, key_space=400)
     tree = port.tree
     lvl = max(lvl for lvl, ssts in enumerate(tree.levels) if len(ssts) >= 2)
-    ssts, *_, bits, offsets = tree._level_index(lvl)
+    ssts = tree._level_index(lvl)[0]
     keys = np.arange(0, 64, dtype=np.uint64)
     for pair_ssts, entry in (([ssts[0]] * 64, "probe"),
                              ([ssts[0], ssts[1]] * 32, "probe_pairs")):
         before = dict(probe_calls)
-        got = tree._probe_pairs_real(keys, pair_ssts, bits, offsets)
+        got = tree._probe_pairs_real(keys, pair_ssts)
         assert probe_calls[entry] == before[entry] + 1
         assert sum(probe_calls.values()) == sum(before.values()) + 1
         want = [filters.probe_one_np(int(k), s.filter_words, s.filter_k)
                 for k, s in zip(keys, pair_ssts)]
         assert got.tolist() == want
+
+
+def test_filterless_ssts_pass_unprobed(probe_calls):
+    """SSTs without a filter (built under another mode) pass without a
+    probe and take no slot; the filtered pairs of the same call keep their
+    hits, and a call whose SSTs are all filterless makes no probe call."""
+    _, port = _pair()
+    _fill([port], n=600, key_space=400)
+    tree = port.tree
+    lvl = max(lvl for lvl, ssts in enumerate(tree.levels) if len(ssts) >= 2)
+    ssts = tree._level_index(lvl)[0]
+    bare = ssts[0]
+    bare.filter_words = None
+    tree._level_epoch[lvl] += 1
+    assert bare.sid not in tree._store_image().slot
+    keys = np.arange(0, 64, dtype=np.uint64)
+    pair_ssts = [bare, ssts[1]] * 32
+    got = tree._probe_slots(keys, np.arange(64, dtype=np.int32), pair_ssts)
+    want = [True if s is bare else
+            filters.probe_one_np(int(k), s.filter_words, s.filter_k)
+            for k, s in zip(keys, pair_ssts)]
+    assert got.tolist() == want and not all(want)
+    before = sum(probe_calls.values())
+    assert tree._probe_slots(keys, np.arange(64, dtype=np.int32),
+                             [bare] * 64).all()
+    assert tree._probe_pairs_real(keys, [bare] * 64).all()
+    assert sum(probe_calls.values()) == before
 
 
 def _op_sequence(seed, n_ops=300, key_space=250):
@@ -278,6 +325,113 @@ def test_batched_gets_identical_to_per_key(scheme):
     assert port.sim.now == ref.sim.now
     _, port_b = _pair(scheme)
     assert _run_sequence(port_b, ops, batch=8) == want
+
+
+def _in_memory(tree, key):
+    return any(key in m.data for m in [tree.memtable] + tree.immutables
+               + tree._flushing)
+
+
+def _count_batches(tree):
+    """Wrap ``tree.get_batch`` to count the batches that have a filtered
+    candidate pair when they start (the state the batch's one probe call
+    sees: it runs before the walk's first yield)."""
+    batches = {"calls": 0, "filtered": 0}
+    orig = tree.get_batch
+
+    def counted(keys):
+        batches["calls"] += 1
+        batches["filtered"] += any(
+            s.filter_words is not None
+            for key in keys if not _in_memory(tree, key)
+            for lvl in range(len(tree.levels)) if tree.levels[lvl]
+            for s in tree._level_candidates(lvl, key))
+        return (yield from orig(keys))
+
+    tree.get_batch = counted
+    return batches
+
+
+def _assert_one_call_per_batch(tree, batches, probe_calls):
+    reprobes = tree.probe_calls["reprobe_epoch"] + \
+        tree.probe_calls["reprobe_mixed_k"]
+    assert batches["filtered"] > 0
+    assert tree.probe_calls["batch"] == batches["filtered"]
+    assert probe_calls["probe_pairs"] >= batches["filtered"]
+    assert sum(probe_calls.values()) == batches["filtered"] + reprobes
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_batched_read_makes_one_probe_call(scheme, probe_calls):
+    """Per scheme: each batched read with a filtered candidate pair makes
+    one pairs call for all its levels (plus the reported re-probes), and
+    gives the reference's answers, stats and clock (mirrors
+    ``test_batched_gets_identical_to_per_key``)."""
+    ops = _op_sequence(seed=0)
+    ref, port = _pair(scheme)
+    batches = _count_batches(port.tree)
+    assert _run_sequence(port, ops, batch=8) == \
+        _run_sequence(ref, ops, batch=8)
+    assert port.tree.stats == ref.tree.stats
+    assert port.sim.now == ref.sim.now
+    _assert_one_call_per_batch(port.tree, batches, probe_calls)
+
+
+@pytest.mark.parametrize("scheme,workload,rate,read_batch", [
+    ("HHZS", "C", 60.0, 64), ("B3", "C", 60.0, 64), ("HHZS", "A", 200.0, 16),
+    ("B3", "A", 200.0, 16)])
+def test_open_loop_one_probe_call_per_batch(scheme, workload, rate,
+                                            read_batch, probe_calls):
+    """A tiny open-loop cell with batched reads publishes the reference's
+    row, byte for byte, with one pairs call per batch that has a filtered
+    pair (mirrors ``test_open_loop_row_byte_identical``).
+    Under YCSB-A the writes flush and compact while batches wait on I/O:
+    levels whose membership moved since the batch's call are probed again
+    at walk time, and the row stays the reference's."""
+    ref, port, n = _loaded_pair(scheme)
+    batches = _count_batches(port.tree)
+    rows = []
+    for db, wl in ((ref, ref_wl), (port, pt_wl)):
+        res = wl.run_open_loop(db, wl.YCSB[workload],
+                               wl.PoissonArrivals(rate), duration=40.0,
+                               n_keys=n, warmup=5.0, read_batch=read_batch,
+                               seed=3)
+        rows.append(_row(res))
+    assert rows[0] == rows[1]
+    assert port.tree.stats == ref.tree.stats
+    _assert_one_call_per_batch(port.tree, batches, probe_calls)
+    if workload == "A":
+        assert port.tree.probe_calls["reprobe_epoch"] > 0
+
+
+def test_mixed_filter_k_level_takes_the_per_level_call(probe_calls):
+    """A level whose SSTs carry filters of different k (images carried
+    from reference SSTs with ``from_reference_sst_arrays``) is left out of
+    the batch's call and probed at walk time with the reference's
+    per-level call (k = the largest of its pending pairs'), with the
+    reference's answers, stats and clock."""
+    ref, port = _pair()
+    _fill([ref, port], n=600, key_space=400)
+    lvl = max(lvl for lvl, ssts in enumerate(ref.tree.levels)
+              if len(ssts) >= 2)
+    for r_sst in ref.tree.levels[lvl][::2]:
+        ref_filters.attach_filter(r_sst, 4)        # k 3 beside the level's 7
+        conv = filters.from_reference_sst_arrays(
+            r_sst.keys, r_sst.tombs, r_sst.filter_words, r_sst.filter_k,
+            sid=r_sst.sid, level=r_sst.level)
+        p_sst = next(s for s in port.tree.levels[lvl] if s.sid == r_sst.sid)
+        p_sst.filter_words, p_sst.filter_k = conv.filter_words, conv.filter_k
+    for db in (ref, port):
+        db.tree._level_epoch[lvl] += 1           # the filters changed
+    assert port.tree._level_index(lvl)[4], "the level mixes filter_k"
+    keys = list(range(0, 420, 3))
+    for start in range(0, len(keys), 16):
+        chunk = keys[start:start + 16]
+        assert port.get_batch(chunk) == ref.get_batch(chunk)
+    assert port.tree.stats == ref.tree.stats
+    assert port.sim.now == ref.sim.now
+    assert port.tree.probe_calls["reprobe_mixed_k"] > 0
+    assert port.tree.probe_calls["reprobe_epoch"] == 0
 
 
 # ----------------------------------------------------------------------
@@ -409,7 +563,8 @@ def card():
 @pytest.mark.gpu
 def test_cuda_store_matches_cpu_store(card):
     """The same YCSB-C open-loop cell on the card and on the CPU: rows and
-    stats identical, and the card's probes went through both kernels."""
+    stats identical, and the card's batched reads went through the pairs
+    kernel, one launch a batch with a filtered pair plus the re-probes."""
     rows, stats = [], []
     kernel.reset_launches()
     for dev in (card, "cpu"):
@@ -422,5 +577,9 @@ def test_cuda_store_matches_cpu_store(card):
         stats.append(dict(port.tree.stats))
         if dev == card:
             launched = dict(kernel.launches)
+            port_calls = dict(port.tree.probe_calls)
     assert rows[0] == rows[1] and stats[0] == stats[1]
-    assert launched["bloom_probe"] > 0 and launched["bloom_probe_pairs"] > 0
+    assert launched["bloom_probe_pairs"] > 0
+    calls = port_calls["batch"] + port_calls["reprobe_epoch"] + \
+        port_calls["reprobe_mixed_k"] + 1         # + the per-key read
+    assert sum(launched.values()) <= calls

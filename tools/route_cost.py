@@ -18,10 +18,17 @@ that drift of the host's clock falls on both routes alike.  The stores
 see the same op streams, so their results and ``tree.stats`` must be
 identical (checked); the difference in wall time is the probe route's.
 
+The probe stage is the tree's probe calls (``LSMTree._probe_slots`` and
+``_probe_pairs_real``, whichever the version has; a call inside another
+counts once): each is timed with ``time.perf_counter`` and summed.  On
+the numpy route a per-key read probes inside its walk
+(``_filter_hit``), outside the stage.
+
 Prints the card's name and power limit, then one JSON line: per path
-kind and route, wall seconds of each segment, microseconds per read, and
-per read the probe calls, kernel launches and Bloom probes.  ``--src``
-names the ``src`` directory to import ``repro_torch`` from (default: this
+kind and route, wall seconds of each segment, microseconds per read, the
+probe stage's microseconds per read and share of the wall time, and per
+read the probe calls, kernel launches and Bloom probes.  ``--src`` names
+the ``src`` directory to import ``repro_torch`` from (default: this
 checkout's), so two versions of the port can be timed in one run.
 """
 from __future__ import annotations
@@ -50,7 +57,8 @@ def main() -> int:
     import torch
 
     from repro_torch.kernels.bloom_probe import bloom_probe as kernel
-    from repro_torch.lsm import DB, ScenarioConfig, filters
+    from repro_torch.lsm import DB, ScenarioConfig
+    from repro_torch.lsm.tree import LSMTree
     from repro_torch.workloads import (YCSB, PoissonArrivals, run_load,
                                        run_open_loop, run_workload)
 
@@ -65,13 +73,22 @@ def main() -> int:
     kernel.load()
     n_keys = args.keys or ScenarioConfig().paper_keys // 16
 
-    calls = {"n": 0}
-    orig = (filters.probe, filters.probe_pairs)
+    stage = {"n": 0, "s": 0.0, "depth": 0}
+    orig = {name: getattr(LSMTree, name) for name in
+            ("_probe_slots", "_probe_pairs_real") if hasattr(LSMTree, name)}
 
-    def counted(fn):
+    def timed(fn):
         def wrap(*a, **kw):
-            calls["n"] += 1
-            return fn(*a, **kw)
+            if stage["depth"]:
+                return fn(*a, **kw)
+            stage["depth"] = 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                stage["s"] += time.perf_counter() - t0
+                stage["n"] += 1
+                stage["depth"] = 0
         return wrap
 
     dbs = {}
@@ -101,26 +118,29 @@ def main() -> int:
 
     out = {"src": str(Path(args.src)), "n_keys": n_keys, "card": card}
     rows = {"numpy": [], "cuda": []}
-    filters.probe, filters.probe_pairs = map(counted, orig)
+    for name, fn in orig.items():
+        setattr(LSMTree, name, timed(fn))
     try:
         for kind, fn in (("perkey", perkey), ("batched", batched)):
             seconds = {"numpy": [], "cuda": []}
             per = {r: {"probe_calls": 0, "launches": 0, "filter_probes": 0,
                        "reads": 0} for r in dbs}
+            probe_s = {"numpy": [], "cuda": []}
             for route, seed in (("numpy", 1), ("cuda", 1), ("cuda", 2),
                                 ("numpy", 2)):
                 db = dbs[route]
                 kernel.reset_launches()
-                calls["n"] = 0
+                stage.update(n=0, s=0.0)
                 fp0 = db.tree.stats["filter_probes"]
                 t0 = time.perf_counter()
                 reads, row, thpt = fn(db, seed)
                 torch.cuda.synchronize()
                 seconds[route].append(time.perf_counter() - t0)
+                probe_s[route].append(stage["s"])
                 if thpt is not None:
                     rate.setdefault("r", 2.0 * thpt)
                 p = per[route]
-                p["probe_calls"] += calls["n"]
+                p["probe_calls"] += stage["n"]
                 p["launches"] += sum(kernel.launches.values())
                 p["filter_probes"] += db.tree.stats["filter_probes"] - fp0
                 p["reads"] += reads
@@ -129,6 +149,11 @@ def main() -> int:
                 "seconds": seconds,
                 "us_per_read": {r: 1e6 * sum(s) / per[r]["reads"]
                                 for r, s in seconds.items()},
+                "probe_seconds": probe_s,
+                "probe_us_per_read": {r: 1e6 * sum(s) / per[r]["reads"]
+                                      for r, s in probe_s.items()},
+                "probe_share": {r: sum(probe_s[r]) / sum(seconds[r])
+                                for r in seconds},
                 "reads": per["cuda"]["reads"],
                 "per_read": {r: {k: v / p["reads"] for k, v in p.items()
                                  if k != "reads"} for r, p in per.items()}}
@@ -138,7 +163,8 @@ def main() -> int:
                       file=sys.stderr)
                 return 1
     finally:
-        filters.probe, filters.probe_pairs = orig
+        for name, fn in orig.items():
+            setattr(LSMTree, name, fn)
     out["levels"] = [len(lvl) for lvl in dbs["cuda"].tree.levels]
     out["results_identical"] = (
         rows["numpy"] == rows["cuda"]
