@@ -114,7 +114,41 @@ nvcc per source, all started together, into ``build/repro_torch/``, then:
    layers, bf16) against the plain version within 2e-2, timed beside
    their bound, ``scaled_dot_product_attention`` and the wrapper's other
    kernel, on the CUDA cores (``simt_ms``): the ``by_model`` entries of
-   the flash row.
+   the flash row;
+13. training identity: Qwen3-1.7B (2 layers), Falcon-Mamba-7B (2) and
+   Hymba-1.5B (3) at full width, fp32 from one seeded ``init_state``,
+   TF32 off, SyntheticLM batch 2 x 256: one ``make_train_step`` step with
+   remat on at grad_accum 1 and 2 on the card and on the CPU, the launch
+   counts zeroed just before and read just after each: loss, grad norm
+   and lr within 1e-4 relative, every gradient (the first moment, 0.1 g
+   times the clip scale) within 1e-4 of its largest, every parameter with
+   a gradient on the CPU with one on the card, the new parameters bf16,
+   launches exactly (1 + remat) x micro-batches x layers for each kernel
+   (fp32 flash on the CUDA-core kernel); on the card a second step on
+   the bf16 parameters (A_log and D included) runs to a finite loss.  The
+   masters after the step are reported, not checked: AdamW's first step
+   maps g to about g / (|g| + 1e-8), so gradients near 1e-8 that differ
+   in their last bits move their masters by up to the learning rate;
+   instead ``adamw.update`` runs on the card and the CPU on the same
+   state and gradients (masters and moments within 1e-4, parameters
+   within one bf16 step).  Then ``train_loop`` on Hymba's smoke config
+   on the card, killed at step 5 and resumed from step 4's checkpoint to
+   step 8, and the state it ends with saved and restored on the card
+   into a fresh state's structure: every leaf equal after widening, in
+   the fresh dtypes (A_log fp32);
+14. Hymba-1.5B trains at full width and depth through ``train_loop``:
+   bf16 random weights (seed 0), fp32 masters and moments, remat on, 6
+   steps of SyntheticLM batches 4 x 2,048, no checkpoint, the counts
+   zeroed just before and read just after: finite losses and grad norms,
+   exactly 2 x 32 flash (all ``mma``) and 2 x 32 fused-scan launches a
+   step and nothing else; seconds a step, tokens per second over steps
+   2-6, peak memory; then one more step of the same state under the
+   profiler's CUDA activity with the two Functions' backwards bracketed
+   by CUDA events (``BackwardSpans``): device time by operation, the
+   kernels' forwards, the plain attention backward, the chunked-scan
+   backward and GEMMs, and the busy share (device time over the mean
+   unprofiled step).  The flash and fused-scan rows of the ``kernels``
+   line get a ``by_path`` entry with these launches.
 
 TF32 is off for matmuls and cuDNN (the defaults for matmuls), so fp32
 products on the card are full fp32.  Each phase prints one JSON line; the
@@ -123,7 +157,7 @@ card's name and power limit come from nvidia-smi.  The last line is
 code is non-zero and no result prints.  Exits non-zero at once when no
 CUDA card is visible.  ``--phases 9,10`` runs only the phases named (for a
 short first call after a kernel edit); it prints no ``kernels`` or ``ok``
-line.
+line.  Phases 13 and 14 take ~4 and ~2 minutes.
 """
 from __future__ import annotations
 
@@ -133,6 +167,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -144,7 +179,10 @@ import torch  # noqa: E402
 
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.checkpoint import ckpt  # noqa: E402
+from repro_torch.config import ParallelConfig, TrainConfig  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.bloom_probe import bloom_probe as kernel  # noqa: E402
 from repro_torch.kernels.bloom_probe import ref  # noqa: E402
@@ -164,10 +202,13 @@ from repro_torch.kernels.selective_scan import (  # noqa: E402
     selective_scan as scan_kernel)
 from repro_torch.kernels.selective_scan.ref import (  # noqa: E402
     selective_scan_fused_ref, selective_scan_ref)
+from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.lsm import DB, ScenarioConfig, filters  # noqa: E402
 from repro_torch.models import (forward, init_caches,  # noqa: E402
-                                init_model, layer_windows, make_prefill_step,
-                                make_serve_step)
+                                init_model, init_state, layer_windows,
+                                make_prefill_step, make_serve_step,
+                                make_train_step, state_shapes)
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.workloads import (YCSB, PoissonArrivals,  # noqa: E402
                                    run_load, run_open_loop, run_workload)
@@ -195,7 +236,7 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
 # phase 7: the serving path at full size
 SERVE_REQUESTS = 24
 SERVE_NEW_TOKENS = 64
-ALL_PHASES = tuple(range(1, 13))
+ALL_PHASES = tuple(range(1, 15))
 
 
 def emit(**obj) -> None:
@@ -1549,9 +1590,11 @@ def serve(cfg, model, prompt: np.ndarray, new: int, dev,
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
-    """Largest |got - want| relative to the largest |want|."""
+    """Largest |got - want| relative to the largest |want| (absolute where
+    ``want`` is all zeros)."""
     g, w = got.float().cpu(), want.float().cpu()
-    return float((g - w).abs().max() / w.abs().max())
+    scale = float(w.abs().max())
+    return float((g - w).abs().max()) / (scale or 1.0)
 
 
 def phase_model_identity(card_dev: str = "cuda") -> dict:
@@ -2044,6 +2087,415 @@ def merge_flash(kernels: list, by_model: dict, variants: dict) -> None:
                     row["launches_by_variant"][kind] += n
 
 
+# ----------------------------------------------------------------------
+# phases 13 and 14: training
+# ----------------------------------------------------------------------
+# (model, layers in phase 13); batch x tokens of each phase 13 step
+TRAIN_IDENTITY = [("qwen3-1.7b", 2), ("falcon-mamba-7b", 2),
+                  ("hymba-1.5b", 3)]
+TRAIN_BATCH, TRAIN_SEQ = 2, 256
+TRAIN_TC = TrainConfig(total_steps=10, warmup_steps=2)
+TRAIN_TOL = 1e-4
+# phase 14: Hymba-1.5B at full width and depth
+TRAIN_MAIN = "hymba-1.5b"
+TRAIN_MAIN_BATCH, TRAIN_MAIN_SEQ, TRAIN_MAIN_STEPS = 4, 2048, 6
+GEMM_KERNELS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
+
+
+def kernel_layers(cfg) -> dict:
+    """Layers whose forward launches each kernel once."""
+    return {"flash_attention": cfg.num_layers if cfg.has_attention else 0,
+            "selective_scan_fused": cfg.num_layers if cfg.has_ssm else 0}
+
+
+def train_launches(cfg, steps: int, accum: int, remat: bool = True) -> dict:
+    """Each kernel's launches in ``steps`` train steps: one per layer of
+    each micro-batch's forward, again in its recompute under remat, none
+    in the backward (the Functions' backward is plain PyTorch)."""
+    return {k: n * steps * accum * (1 + remat)
+            for k, n in kernel_layers(cfg).items()}
+
+
+def state_to(state: dict, dev) -> dict:
+    """A copy of a train state on ``dev``."""
+    opt = state["opt"]
+    return {"model": copy.deepcopy(state["model"]).to(dev),
+            "opt": adamw.OptState(
+                step=opt.step.to(dev, copy=True),
+                **{f: {n: t.to(dev, copy=True)
+                       for n, t in getattr(opt, f).items()}
+                   for f in ("master", "mu", "nu")})}
+
+
+def train_run(cfg, base: dict, batch: dict, accum: int, dev,
+              second: bool) -> tuple:
+    """One train step from a copy of ``base`` on ``dev``, the launch
+    counts zeroed just before and read just after; with ``second``, then
+    a second step (on the bf16 parameters the first left, A_log and D
+    included, which the fused kernel takes widened to fp32).  Returns (host copies of the moments, masters and
+    parameters after the first step; a record)."""
+    state = state_to(base, dev)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    step = make_train_step(cfg, TRAIN_TC, ParallelConfig(grad_accum=accum))
+    reset_model_launches()
+    t0 = time.perf_counter()
+    state, m = step(state, b)
+    loss = float(m["loss"])
+    seconds = time.perf_counter() - t0
+    rec = {"metrics": {"loss": loss, "grad_norm": float(m["grad_norm"]),
+                       "lr": float(m["lr"])},
+           "seconds": seconds, "launches": model_launches(),
+           "flash_variants": dict(flash_kernel.variant_launches)}
+    first = {f: {n: t.detach().to("cpu", copy=True) for n, t in
+                 getattr(state["opt"], f).items()}
+             for f in ("master", "mu", "nu")}
+    first["params"] = {n: p.detach().to("cpu", copy=True)
+                       for n, p in state["model"].named_parameters()}
+    if second:
+        state, m2 = step(state, b)
+        rec["loss2"] = float(m2["loss"])
+    rec["param_dtypes"] = sorted({str(p.dtype) for p in
+                                  state["model"].parameters()})
+    return first, rec
+
+
+def adamw_identity(base: dict, grads: dict, dev) -> dict:
+    """``adamw.update`` on the same state and gradients on the card and on
+    the CPU: masters and moments within TRAIN_TOL of each tensor's
+    largest, parameters bf16 within one step of each other."""
+    out = {}
+    for d in (dev, "cpu"):
+        st = state_to(base, d)
+        params, opt, m = adamw.update({n: g.to(d) for n, g in grads.items()},
+                                      st["opt"], TRAIN_TC)
+        out[d] = (params, opt, {k: float(v) for k, v in m.items()})
+    (pc, oc, mc), (pp, op, mp) = out[dev], out["cpu"]
+    err = max(rel_err(getattr(oc, f)[n], getattr(op, f)[n])
+              for f in ("master", "mu", "nu") for n in grads)
+    ulps = max(int((pc[n].cpu().view(torch.int16).int()
+                    - pp[n].view(torch.int16).int()).abs().max())
+               for n in grads)
+    return {"max_rel_err": err, "param_bf16_steps": ulps,
+            "grad_norm_rel_err": abs(mc["grad_norm"] - mp["grad_norm"])
+            / mp["grad_norm"], "lr_equal": mc["lr"] == mp["lr"]}
+
+
+def ckpt_round_trip(cfg, state: dict, dev) -> dict:
+    """Save a card state, restore it into a fresh state's structure on the
+    card: every leaf in the fresh dtype and equal to the saved one
+    widened."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        ckpt.save(state, 1, d)
+        got, step = ckpt.restore(state_shapes(cfg), d, device=dev)
+        nbytes = sum(f.stat().st_size for f in Path(d).rglob("*")
+                     if f.is_file())
+    fresh = state_shapes(cfg)
+    pairs = [(p, q, f) for (_, p), (_, q), (_, f) in zip(
+        got["model"].named_parameters(), state["model"].named_parameters(),
+        fresh["model"].named_parameters())]
+    for fld in ("master", "mu", "nu"):
+        pairs += [(getattr(got["opt"], fld)[n], t, t)
+                  for n, t in getattr(state["opt"], fld).items()]
+    pairs.append((got["opt"].step, state["opt"].step, state["opt"].step))
+    return {"step": step, "leaves": len(pairs), "bytes": nbytes,
+            "dtypes_fresh": all(p.dtype == f.dtype for p, _, f in pairs),
+            "on_card": all(p.device.type == "cuda" for p, _, _ in pairs),
+            "equal": all(torch.equal(p.double(), q.double())
+                         for p, q, _ in pairs),
+            "a_log_dtype": str(got["model"].layers[0].ssm.A_log.dtype)
+            if cfg.has_ssm else None}
+
+
+def phase_train_identity(card_dev: str = "cuda") -> dict:
+    """Phase 13: make_train_step on the card and on the CPU, fp32 from one
+    seeded init_model, remat on, at grad_accum 1 and 2 (each model's
+    record printed before its checks); the optimizer alone on both
+    devices; train_loop killed and resumed on the card, and a checkpoint
+    round trip of the state it ends with."""
+    out = {}
+    b1 = TRAIN_TC.beta1
+    pending = []
+
+    def defer(cond: bool, what: str) -> None:
+        pending.append((cond, what))
+    for name, layers in TRAIN_IDENTITY:
+        cfg = dataclasses.replace(get_config(name), num_layers=layers)
+        base = init_state(cfg, seed=0, device="cpu", dtype=torch.float32)
+        batch = SyntheticLM(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                            seed=13).batch_at(0)
+        r = {"layers": layers, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+             "params": sum(p.numel() for p in base["model"].parameters())}
+        for accum in (1, 2):
+            t0 = time.perf_counter()
+            cpu, cpu_rec = train_run(cfg, base, batch, accum, "cpu", False)
+            cpu_rec["run_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            card, card_rec = train_run(cfg, base, batch, accum, card_dev,
+                                       accum == 1)
+            card_rec["run_s"] = time.perf_counter() - t0
+            want = train_launches(cfg, 1, accum)
+            rel = {k: abs(card_rec["metrics"][k] - v) / abs(v)
+                   for k, v in cpu_rec["metrics"].items()}
+            errs = sorted(((rel_err(card[f][n], cpu[f][n]), f, n)
+                           for f in ("mu", "nu") for n in cpu["mu"]),
+                          reverse=True)
+            moments = errs[0][0]
+            # a gradient lost at a kernel zeroes a whole parameter; single
+            # elements can round to 0 on one device and not the other
+            lost = [n for n in cpu["mu"]
+                    if cpu["mu"][n].any() and not card["mu"][n].any()]
+            only_cpu = torch.cat([cpu["mu"][n][(cpu["mu"][n] != 0)
+                                               & (card["mu"][n] == 0)]
+                                  for n in cpu["mu"]])
+            masters = max(rel_err(card["master"][n], cpu["master"][n])
+                          for n in cpu["master"])
+            rec = {"cpu": cpu_rec, "card": card_rec, "metrics_rel_err": rel,
+                   "moments_rel_err": moments,
+                   "moments_worst": [
+                       {"tensor": f"{f}:{n}", "rel_err": e,
+                        "cpu_largest": float(cpu[f][n].abs().max())}
+                       for e, f, n in errs[:4]],
+                   "params_with_grad_on_cpu_none_on_card": lost,
+                   "elements_nonzero_on_cpu_zero_on_card": only_cpu.numel(),
+                   "their_largest_cpu_moment": float(only_cpu.abs().max())
+                   if only_cpu.numel() else 0.0,
+                   "masters_rel_err": masters,
+                   "params_bf16": all(p.dtype == torch.bfloat16
+                                      for p in card["params"].values()),
+                   "expected_launches": want}
+            r[f"grad_accum_{accum}"] = rec
+            tag = f"phase 13 {name} grad_accum {accum}"
+            defer(all(e <= TRAIN_TOL for e in rel.values()),
+                  f"{tag}: loss, grad norm and lr within 1e-4 of the CPU's")
+            defer(moments <= TRAIN_TOL,
+                  f"{tag}: every gradient (the moments) within 1e-4 of the "
+                  "CPU's, relative to its largest")
+            defer(not lost,
+                  f"{tag}: every parameter the CPU gives a gradient has one "
+                  "on the card")
+            defer(rec["params_bf16"], f"{tag}: parameters bf16 after a step")
+            defer(accum > 1 or np.isfinite(card_rec["loss2"]),
+                  f"{tag}: a second step on the card (bf16 A_log and D) "
+                  "runs to a finite loss")
+            launched_now = card_rec["launches"]
+            defer(all(launched_now[k] == n for k, n in want.items())
+                  and sum(launched_now.values()) == sum(want.values()),
+                  f"{tag}: (1 + remat) x micro-batches x layers launches of "
+                  "each kernel, nothing else")
+            defer(card_rec["flash_variants"]["simt"]
+                  == want["flash_attention"],
+                  f"{tag}: fp32 flash on the CUDA-core kernel")
+            defer(not any(cpu_rec["launches"].values()),
+                  f"{tag}: the CPU run launched no kernel")
+            if name == "hymba-1.5b" and accum == 1:
+                t0 = time.perf_counter()
+                r["adamw_identity"] = adamw_identity(
+                    base, {n: t / (1 - b1) for n, t in cpu["mu"].items()},
+                    card_dev)
+                r["adamw_identity"]["seconds"] = time.perf_counter() - t0
+            del card, cpu
+            torch.cuda.empty_cache()
+        out[name] = r
+        emit(phase13={name: r})             # before its checks
+        for cond, what in pending:
+            check(cond, what)
+        pending.clear()
+    ident = out["hymba-1.5b"]["adamw_identity"]
+    check(ident["max_rel_err"] <= TRAIN_TOL and ident["param_bf16_steps"] <= 1
+          and ident["grad_norm_rel_err"] <= TRAIN_TOL and ident["lr_equal"],
+          "phase 13: AdamW on the card equals the CPU's on the same state "
+          "and gradients")
+    cfg = get_config("hymba-1.5b").smoke()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        t0 = time.perf_counter()
+        resumed = train_loop(cfg, steps=8, batch=2, seq=32, ckpt_dir=d,
+                             save_every=4, fail_at=5, log=lambda *a: None,
+                             device=card_dev)
+        seconds = time.perf_counter() - t0
+    out["kill_and_resume"] = {
+        "model": cfg.name, "final_step": resumed["final_step"],
+        "restarts": resumed["restarts"], "events": resumed["events"],
+        "seconds": seconds}
+    check(resumed["restarts"] == 1 and resumed["final_step"] == 8
+          and any("restored at 4" in e for e in resumed["events"]),
+          "phase 13: train_loop killed at step 5 resumed from step 4 and "
+          "ended at step 8")
+    out["checkpoint"] = rt = ckpt_round_trip(cfg, resumed["state"], card_dev)
+    check(rt["dtypes_fresh"] and rt["on_card"] and rt["equal"]
+          and rt["a_log_dtype"] == "torch.float32",
+          "phase 13: the trained state's checkpoint restores on the card "
+          "byte-equal, in a fresh state's dtypes")
+    return out
+
+
+def is_gemm(name: str) -> bool:
+    return any(g in name.lower() for g in GEMM_KERNELS)
+
+
+class BackwardSpans:
+    """Wraps the backward of the two kernels' autograd Functions: CUDA
+    events recorded on the stream just before and just after each call,
+    so the device time each backward spans (every operation it launches,
+    any idle gap inside it included) sums per Function."""
+
+    FUNCTIONS = {"flash_attention_backward": flash_ops.FlashAttention,
+                 "selective_scan_backward": scan_ops.SelectiveScanFused}
+
+    def __init__(self):
+        self.events = {name: [] for name in self.FUNCTIONS}
+        self._orig = {name: fn.backward for name, fn in
+                      self.FUNCTIONS.items()}
+
+    def _wrap(self, name: str):
+        orig = self._orig[name]
+
+        def backward(ctx, *grads):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(ctx, *grads)
+            end.record()
+            self.events[name].append((start, end))
+            return out
+        return staticmethod(backward)
+
+    def __enter__(self):
+        for name, fn in self.FUNCTIONS.items():
+            fn.backward = self._wrap(name)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.FUNCTIONS.items():
+            fn.backward = staticmethod(self._orig[name])
+
+    def summary(self) -> dict:
+        torch.cuda.synchronize()
+        return {name: {"device_ms": sum(s.elapsed_time(e) for s, e in ev),
+                       "calls": len(ev)}
+                for name, ev in self.events.items()}
+
+
+def profiled_split(fn) -> dict:
+    """``fn`` (one train step) under the profiler's CUDA activity and
+    ``BackwardSpans``: device time by operation, and split into the two
+    kernels' forward launches, the spans of the Functions' backwards (the
+    plain attention recompute, the chunked scan), all GEMMs (those inside
+    the backward spans included) and the rest outside the spans."""
+    with BackwardSpans() as spans:
+        ops = device_ops(fn)
+    back = spans.summary()
+    total = sum(ms for _, ms, _ in ops)
+
+    def part(hits):
+        ms = sum(ms for _, ms, _ in hits)
+        return {"device_ms": ms, "launches": sum(n for _, _, n in hits),
+                "share": ms / total if total else None}
+    fwd = {"flash_fwd": part([o for o in ops if "flash_fwd" in o[0]]),
+           "selective_scan_fused": part(
+               [o for o in ops if "selective_scan_fused_kernel" in o[0]])}
+    for b in back.values():
+        b["share"] = b["device_ms"] / total if total else None
+    outside = total - sum(b["device_ms"] for b in back.values())
+    return {"device_ms": total, "forward_kernels": fwd,
+            "backward_spans": back,
+            "gemms_all": part([o for o in ops if is_gemm(o[0])]),
+            "outside_backward_spans_ms": outside,
+            "top_ops": [{"op": key[:120], "device_ms": ms, "count": n,
+                         "share": ms / total} for key, ms, n in ops[:TOP_OPS]]}
+
+
+def phase_train_main(dev: str = "cuda") -> dict:
+    """Phase 14: Hymba-1.5B at full width and depth trains through
+    ``train_loop`` (bf16 parameters, fp32 masters and moments, remat on,
+    random weights from seed 0, SyntheticLM data), the launch counts
+    zeroed just before and read just after; then one more step of the
+    same state under the profiler."""
+    cfg = get_config(TRAIN_MAIN)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stamps = []
+
+    def log(msg):
+        stamps.append((time.perf_counter(), msg))
+    reset_model_launches()
+    t0 = time.perf_counter()
+    out = train_loop(cfg, steps=TRAIN_MAIN_STEPS, batch=TRAIN_MAIN_BATCH,
+                     seq=TRAIN_MAIN_SEQ, log_every=1, log=log, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = model_launches()
+    variants = dict(flash_kernel.variant_launches)
+    peak = torch.cuda.max_memory_allocated()
+    gnorms = [float(msg.split("gnorm ")[1]) for _, msg in stamps]
+    times = [t for t, _ in stamps]
+    tokens = TRAIN_MAIN_BATCH * TRAIN_MAIN_SEQ
+    later = times[-1] - times[0]
+    want = train_launches(cfg, TRAIN_MAIN_STEPS, 1)
+    state = out["state"]
+    rec = {"model": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model,
+           "params": sum(p.numel() for p in state["model"].parameters()),
+           "batch": [TRAIN_MAIN_BATCH, TRAIN_MAIN_SEQ],
+           "steps": out["final_step"], "wall_s": wall,
+           "first_step_and_init_s": times[0] - t0,
+           "step_s": [b - a for a, b in zip(times, times[1:])],
+           "mean_step_s_2_on": later / (len(times) - 1),
+           "tokens_per_s_2_on": tokens * (len(times) - 1) / later,
+           "losses": [loss for _, loss in out["losses"]],
+           "grad_norms": gnorms, "launches": launched,
+           "flash_variants": variants, "expected_launches": want,
+           "peak_device_gib": peak / 2**30,
+           "param_dtypes": sorted({str(p.dtype) for p in
+                                   state["model"].parameters()})}
+    check(out["final_step"] == TRAIN_MAIN_STEPS
+          and len(rec["losses"]) == TRAIN_MAIN_STEPS,
+          "phase 14: every step ran and logged")
+    check(all(np.isfinite(rec["losses"])) and all(np.isfinite(gnorms)),
+          "phase 14: finite losses and grad norms")
+    check(all(launched[k] == n for k, n in want.items())
+          and sum(launched.values()) == sum(want.values()),
+          "phase 14: 2 x 32 flash and 2 x 32 fused-scan launches a step, "
+          "nothing else")
+    check(variants == {"mma": want["flash_attention"], "simt": 0},
+          "phase 14: every flash launch on the tensor-core kernel")
+    step = make_train_step(cfg, TrainConfig(total_steps=TRAIN_MAIN_STEPS),
+                           ParallelConfig(seq_shard_activations=False))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+        cfg.vocab_size, TRAIN_MAIN_BATCH, TRAIN_MAIN_SEQ).batch_at(
+            TRAIN_MAIN_STEPS).items()}
+    holder = {"state": state}
+
+    def one():
+        holder["state"], m = step(holder["state"], batch)
+        holder["loss"] = m["loss"]
+    split = profiled_split(one)
+    check(np.isfinite(float(holder["loss"])),
+          "phase 14: the profiled step's loss is finite")
+    split["busy_share"] = split["device_ms"] / (1e3 * rec["mean_step_s_2_on"])
+    rec["profiled_step"] = split
+    del out, state, holder, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def merge_training(kernels: list, launched: dict, variants: dict) -> None:
+    """Give the flash and fused-scan rows a ``by_path`` entry: the
+    launches of the paths counted so far (serving and prefill) and
+    phase 14's train steps, which the row's ``launches`` now include."""
+    for row in kernels:
+        name = row["name"]
+        if name in launched:
+            row["by_path"] = {"serving and prefill (phases 7, 11)":
+                              row["launches"],
+                              "train (phase 14)": launched[name]}
+            row["launches"] += launched[name]
+            if name == "flash_attention":
+                for kind, n in variants.items():
+                    row["launches_by_variant"][kind] += n
+
+
 def timings(card: str, kernels: list) -> dict:
     return {"card": card, "kernels": [
         {k: v for k, v in d.items() if k in (
@@ -2060,7 +2512,7 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
                     help="comma-separated phases to run (4 needs 3, 8 "
                          "needs 7, 12 needs 11); the result lines print "
-                         "only when all twelve run")
+                         "only when all fourteen run")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
     for later, first in ((4, 3), (8, 7), (12, 11)):
         if later in phases and first not in phases:
@@ -2136,6 +2588,22 @@ def main() -> int:
                      for m, o in model_out.items()})
     if 11 in phases:
         emit(phase11_busy=phase_busy_share(model_out), card=card)
+        del captured, flashes
+        torch.cuda.empty_cache()
+    if 13 in phases:
+        t13 = time.perf_counter()
+        train_ident = phase_train_identity()
+        emit(phase13={k: train_ident[k] for k in ("kill_and_resume",
+                                                    "checkpoint")},
+             seconds=time.perf_counter() - t13, card=card)
+    if 14 in phases:
+        t14 = time.perf_counter()
+        train_main = phase_train_main()
+        emit(phase14=train_main, seconds=time.perf_counter() - t14,
+             card=card)
+        merge_training(kernels, {k: train_main["launches"][k] for k in
+                                 ("flash_attention", "selective_scan_fused")},
+                       train_main["flash_variants"])
     if phases != set(ALL_PHASES):
         return 0
     emit(kernels=kernels)

@@ -10,10 +10,18 @@ the reference the port is tested against.  Ported so far:
   configs, models (the dense decoder), serving (paged pools, tier
   managers, policies and ``ServingEngine(cfg, model, torch_device=...)``),
   with paged decode attention and flash attention forward as CUDA kernels
-  (``kernels/paged_attention``, ``kernels/flash_attention``).
+  (``kernels/paged_attention``, ``kernels/flash_attention``);
+* slice 3, the model's prefill and decode steps for the dense, ssm and
+  hybrid families, with both selective scans as CUDA kernels
+  (``kernels/selective_scan``);
+* slice 7, training: data, optim (AdamW), checkpoint (the reference's
+  on-disk layout), ft and ``launch.train.train_loop``, on one device,
+  through the same kernels (their autograd ``Function``s recompute the
+  backward through the plain versions).
 
-Entry points (``lsm.DB``, ``serving.ServingEngine``) put their data and
-kernels on the CUDA card unless the caller passes ``torch_device="cpu"``,
-which takes the kernels' plain PyTorch versions.
+Entry points (``lsm.DB``, ``serving.ServingEngine``,
+``launch.train.train_loop``) put their data and kernels on the CUDA card
+unless the caller passes ``torch_device="cpu"`` (``device="cpu"`` for the
+train loop), which takes the kernels' plain PyTorch versions.
 """
 __version__ = "0.2.0"

@@ -5,7 +5,8 @@ interface, under ``build/repro_torch/`` in the checkout: no ninja and no
 PyTorch headers are needed.  The library's name carries a hash of the
 source, so an edited source is rebuilt and a built one is reused across
 processes.  ``build_all`` starts one nvcc per source, all at once, and
-waits for them together.
+waits for them together.  ``refuse_grad`` is the wrappers' guard against
+a launch whose output autograd could not follow.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, List
+
+import torch
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -102,3 +105,14 @@ def raise_on(err: int, name: str) -> None:
     """Raise if a launcher returned a CUDA error (a refused launch)."""
     if err != 0:
         raise RuntimeError(f"{name} launch failed with cudaError {err}")
+
+
+def refuse_grad(name: str, entry: str, *tensors: torch.Tensor) -> None:
+    """Raise if grad mode is on and an input requires a gradient: a
+    kernel's output written through a pointer carries no autograd graph,
+    so the gradient would be lost without a word.  ``entry`` names the
+    differentiable entry point to call instead."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward and its inputs require "
+                           f"a gradient: call {entry}, whose autograd "
+                           "Function launches it in the forward")

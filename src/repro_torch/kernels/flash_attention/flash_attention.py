@@ -3,8 +3,9 @@
 
 The source is compiled at first use with nvcc into a shared library and
 bound with ctypes (``kernels/_build.py``).  The wrapper takes CUDA tensors
-only, checks device, dtype, contiguity and shapes, allocates the output
-with ``torch.empty``, launches on the current stream without
+only, checks device, dtype, contiguity and shapes, refuses inputs that
+require a gradient under grad mode (``ops.flash_attention`` is the
+differentiable entry point), allocates the output with ``torch.empty``, launches on the current stream without
 synchronising, and raises if the launch was refused.  ``launches`` counts
 its kernel launches, ``variant_launches`` the same launches by kernel.
 
@@ -87,6 +88,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{MAX_HEAD_DIM} and at least one key")
     if window is not None and window < 1:
         raise ValueError(f"window={window}: needs None or >= 1")
+    _build.refuse_grad("flash_attention_fwd", "ops.flash_attention", q, k, v)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

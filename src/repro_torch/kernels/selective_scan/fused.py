@@ -2,7 +2,8 @@
 built and bound by ``selective_scan.py``), which forms dt * x * B itself.
 
 The wrapper takes CUDA fp32 contiguous tensors only, checks their shapes,
-picks the launch's shape with ``plan`` (a plain function of B, di and the
+refuses inputs that require a gradient under grad mode
+(``ops.selective_scan_fused`` is the differentiable entry point), picks the launch's shape with ``plan`` (a plain function of B, di and the
 card's SM count; ``shape`` states it for given lanes a channel),
 allocates the output with ``torch.empty``, launches on the current stream
 without synchronising, and raises if the launch was refused.
@@ -95,6 +96,8 @@ def selective_scan_fused(dt: torch.Tensor, x: torch.Tensor,
                [("dt", dt), ("x", x), ("bm", bm), ("c", c), ("a", a)],
                {"dt": (b, t, di), "x": (b, t, di), "bm": (b, t, n),
                 "c": (b, t, n), "a": (di, n)})
+    _build.refuse_grad("selective_scan_fused", "ops.selective_scan_fused",
+                       dt, x, bm, c, a)
     y = torch.empty_like(dt)
     if y.numel() == 0:
         return y

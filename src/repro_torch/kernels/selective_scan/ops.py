@@ -6,6 +6,14 @@ kernels (which raise on anything they do not take), CPU tensors take the
 plain PyTorch versions in ``ref``.  Nothing falls back from one to the
 other.  ``mamba_scan`` is the reference's public name for v1; the model's
 prefill calls ``selective_scan_fused``.
+
+``selective_scan_fused`` is an autograd ``Function``: the forward runs
+the fused kernel (or the sequential plain version on the CPU) and saves
+its inputs; the backward recomputes the scan through ``ssm_scan_chunked``
+(the reference's training scan: checkpointed chunks, an associative scan
+inside each) and returns the gradients of dt, x, B, C and A.  The kernel
+wrapper itself refuses inputs that require a gradient under grad mode,
+so no path reaches it without this backward.
 """
 from __future__ import annotations
 
@@ -13,7 +21,7 @@ import torch
 
 from . import fused
 from . import selective_scan as kernel
-from .ref import selective_scan_fused_ref, selective_scan_ref
+from .ref import selective_scan_fused_ref, selective_scan_ref, ssm_scan_chunked
 
 
 def _route(dt: torch.Tensor) -> str:
@@ -31,11 +39,28 @@ def mamba_scan(dt: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
     return selective_scan_ref(dt, bx, c, a)
 
 
+class SelectiveScanFused(torch.autograd.Function):
+    """Forward through the fused kernel (or the plain version on the
+    CPU); backward through the chunked scan."""
+
+    @staticmethod
+    def forward(ctx, dt, x, bm, c, a):
+        ctx.save_for_backward(dt, x, bm, c, a)
+        if _route(dt) == "cuda":
+            return fused.selective_scan_fused(dt, x, bm, c, a)
+        return selective_scan_fused_ref(dt, x, bm, c, a)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            y = ssm_scan_chunked(*inputs)
+            return torch.autograd.grad(y, inputs, grad)
+
+
 def selective_scan_fused(dt: torch.Tensor, x: torch.Tensor,
                          bm: torch.Tensor, c: torch.Tensor,
                          a: torch.Tensor) -> torch.Tensor:
     """dt/x: [B, T, di]; bm/c: [B, T, N]; a: [di, N] (fp32) -> y
     [B, T, di] fp32."""
-    if _route(dt) == "cuda":
-        return fused.selective_scan_fused(dt, x, bm, c, a)
-    return selective_scan_fused_ref(dt, x, bm, c, a)
+    return SelectiveScanFused.apply(dt, x, bm, c, a)

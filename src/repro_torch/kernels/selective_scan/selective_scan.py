@@ -4,8 +4,9 @@
 
 The source is compiled at first use with nvcc into a shared library and
 bound with ctypes (``kernels/_build.py``).  The wrapper takes CUDA fp32
-contiguous tensors only, checks their shapes, allocates the output with
-``torch.empty``, launches on the current stream without synchronising,
+contiguous tensors only, checks their shapes, refuses inputs that
+require a gradient under grad mode (it has no backward), allocates the
+output with ``torch.empty``, launches on the current stream without synchronising,
 and raises if the launch was refused.  ``launches`` counts its kernel
 launches.
 """
@@ -82,6 +83,8 @@ def selective_scan(dt: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
                [("dt", dt), ("bx", bx), ("c", c), ("a", a)],
                {"dt": (b, t, di), "bx": (b, t, di, n), "c": (b, t, n),
                 "a": (di, n)})
+    _build.refuse_grad("selective_scan", "ops.selective_scan_fused (the "
+                       "scan with a backward)", dt, bx, c, a)
     y = torch.empty_like(dt)
     if y.numel() == 0:
         return y

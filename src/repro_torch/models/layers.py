@@ -16,7 +16,9 @@ Where the reference mixes dtypes, JAX promotes (fp32 @ bf16 -> fp32);
 
 The prefill runs attention through ``flash_attention`` and the scan
 through ``selective_scan_fused``: their kernels for CUDA tensors, their
-plain versions for CPU tensors.  Decode (one token against
+plain versions for CPU tensors; both are autograd ``Function``s whose
+backward recomputes through a plain version, so training takes the same
+path.  Decode (one token against
 dense caches) stays plain tensor ops, as in the reference.  MoE and
 cross-attention come with later slices.
 """
@@ -308,9 +310,11 @@ def mamba(p: Mamba, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         conv = conv + xpad[:, i:i + t] * p.conv_w[i]
     xs = silu(conv + p.conv_b)
     dt, b_in, c_in = _ssm_inputs(p, cfg, xs)
+    # A in A_log's dtype, then widened: bf16 after an optimizer step, as
+    # the reference's bf16 -exp(A_log) promotes against fp32 dt
     y = scan_ops.selective_scan_fused(
         dt, xs.float().contiguous(), b_in.float().contiguous(),
-        c_in.float().contiguous(), -torch.exp(p.A_log))
+        c_in.float().contiguous(), (-torch.exp(p.A_log)).float())
     y = y + xs.float() * p.D
     return matmul(y.to(x.dtype) * silu(z), p.out_proj)
 

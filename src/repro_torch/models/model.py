@@ -8,7 +8,7 @@ initialised from a ``torch.Generator`` on the given device, in bf16 like
 the reference, with Mamba's ``A_log`` and ``D`` in fp32.
 
 Entry points, as in the reference:
-  forward(cfg, model, batch)                   -> logits  (prefill)
+  forward(cfg, model, batch, remat)            -> logits  (train, prefill)
   decode_step(cfg, model, token, len, caches)  -> logits, caches
   init_caches(cfg, batch, max_len)             -> dense decode caches
 The serving engine (``serving/engine.py``) runs the dense layers itself
@@ -22,6 +22,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from . import layers as L
@@ -152,15 +153,24 @@ def _block(cfg: ModelConfig, x: torch.Tensor, layer: DecoderLayer,
 
 
 def forward(cfg: ModelConfig, model: Model, batch: Dict,
-            return_hidden: bool = False) -> torch.Tensor:
-    """Prefill forward -> logits [B, S, V] (or the final-normed hidden
-    states [B, S, d] when ``return_hidden``)."""
+            remat: bool = True, return_hidden: bool = False) -> torch.Tensor:
+    """Training / prefill forward -> logits [B, S, V] (or the
+    final-normed hidden states [B, S, d] when ``return_hidden``).  With
+    ``remat`` and grad mode on, each layer runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
+    scanned layer): only the layer inputs are kept, and the backward runs
+    each layer's forward again, its kernels included."""
     check_family(cfg)
     x = embed_inputs(cfg, model, batch)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    remat = remat and torch.is_grad_enabled()
     for layer, window in zip(model.layers, _windows(cfg)):
-        x = _block(cfg, x, layer, positions, window)
+        if remat:
+            x = checkpoint(_block, cfg, x, layer, positions, window,
+                           use_reentrant=False)
+        else:
+            x = _block(cfg, x, layer, positions, window)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     if return_hidden:
         return x

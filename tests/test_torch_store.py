@@ -537,7 +537,9 @@ def test_port_imports_neither_jax_nor_repro():
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), (path, name)
     code = ("import sys, repro_torch.workloads, repro_torch.lsm, "
-            "repro_torch.serving, repro_torch.models, repro_torch.configs; "
+            "repro_torch.serving, repro_torch.models, repro_torch.configs, "
+            "repro_torch.data, repro_torch.optim, repro_torch.checkpoint, "
+            "repro_torch.ft, repro_torch.launch.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
