@@ -9,8 +9,9 @@ Layout per step, as the reference writes it:
 A key is the reference's tree path of the leaf: ``params/<path>`` for a
 parameter, ``opt/.step`` and ``opt/.{master,mu,nu}/<path>`` for the
 optimizer, with the layers' tensors stacked on a leading axis
-(``params/layers/attn/wq`` is [L, d, H * hd]; ``models.convert`` maps the
-port's parameter names to these paths).  Keys come in the reference's
+(``params/layers/attn/wq`` is [L, d, H * hd], an encdec model's
+``params/encoder/layers/attn/wq`` [encoder_layers, d, H * hd];
+``models.convert`` maps the port's parameter names to these paths).  Keys come in the reference's
 order, dtype names are numpy's (``bfloat16``, ``float32``, ``int32``),
 and bf16 is widened to fp32 in the npz, which holds every bf16 value
 exactly.  So a checkpoint written by either package restores in the
@@ -35,7 +36,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.convert import reference_path, stack_layers
+from ..models.convert import reference_path, stack_layers, stacked_layers
 from ..models.model import Model
 from ..optim.adamw import OptState
 
@@ -149,14 +150,14 @@ def restore(like: Dict, ckpt_dir: str, step: Optional[int] = None,
             raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
     d = Path(ckpt_dir) / f"step_{step}"
     model = like["model"]
-    nl = model.cfg.num_layers
     device = torch.device(device) if device is not None \
         else like["opt"].step.device
     if device.type == "meta":
         raise ValueError("restore needs a device to put the state on")
     loaded: Dict[str, np.ndarray] = {}     # an npz reads a key per access
     with np.load(d / "arrays.npz") as data:
-        def leaf(key: str, li: Optional[int], t: torch.Tensor):
+        def leaf(key: str, li: Optional[int], t: torch.Tensor,
+                 nl: int = 0):
             if key not in loaded:
                 loaded[key] = data[key.replace("/", "__")]
             arr = loaded[key]
@@ -170,7 +171,8 @@ def restore(like: Dict, ckpt_dir: str, step: Optional[int] = None,
 
         trees = {}
         for prefix, tensors in _groups(like):
-            trees[prefix] = {n: leaf(f"{prefix}/{path}", li, t)
+            trees[prefix] = {n: leaf(f"{prefix}/{path}", li, t,
+                                     stacked_layers(model.cfg, path))
                              for n, t in tensors.items()
                              for path, li in [reference_path(n)]}
         opt_step = leaf("opt/.step", None, like["opt"].step)

@@ -1,10 +1,12 @@
 """Carry the reference's parameters and train state over into the port's.
 
 The reference keeps a parameter tree of arrays with the layers stacked on
-a leading axis (``params["layers"]["attn"]["wq"][li]``); the port keeps a
+a leading axis (``params["layers"]["attn"]["wq"][li]``, and an encdec
+model's ``params["encoder"]["layers"][...][li]``); the port keeps a
 ``ModuleList`` of layers.  ``from_reference`` takes that tree with numpy
 arrays as leaves and returns a ``Model`` holding the same values in the
-same dtypes (fp32 leaves such as Mamba's ``A_log`` and ``D`` stay fp32).
+same dtypes (fp32 leaves such as Mamba's ``A_log`` and ``D`` and the MoE
+router stay fp32).
 ``state_from_reference`` does the same for a whole train state (``params``
 and ``opt``: step, master, mu, nu).  bf16 arrives as an
 ``ml_dtypes.bfloat16`` numpy array, which ``torch.from_numpy`` does not
@@ -36,14 +38,14 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
 def reference_leaf(params: Dict, name: str) -> np.ndarray:
     """The reference's array for the port's parameter ``name`` (as
     ``Model.named_parameters`` gives it): ``layers.<li>.attn.wq`` is
-    ``params["layers"]["attn"]["wq"][li]``."""
-    parts = name.split(".")
-    if parts[0] != "layers":
-        return params[parts[0]]
-    node = params["layers"]
-    for key in parts[2:]:
+    ``params["layers"]["attn"]["wq"][li]``,
+    ``encoder.layers.<li>.attn.wq`` is
+    ``params["encoder"]["layers"]["attn"]["wq"][li]``."""
+    path, li = reference_path(name)
+    node = params
+    for key in path.split("/"):
         node = node[key]
-    return node[int(parts[1])]
+    return node if li is None else node[li]
 
 
 def from_reference(cfg: ModelConfig, params: Dict,
@@ -52,7 +54,8 @@ def from_reference(cfg: ModelConfig, params: Dict,
     model = Model(cfg, device="meta")
     state = {name: _tensor(np.asarray(reference_leaf(params, name)), device)
              for name, _ in model.named_parameters()}
-    missing = set(params) - {"embed", "final_norm", "layers", "lm_head"}
+    missing = set(params) - {"embed", "final_norm", "layers", "lm_head",
+                             "encoder"}
     if missing:
         raise ValueError(f"reference parameters not in the port's "
                          f"model: {sorted(missing)}")
@@ -63,11 +66,21 @@ def from_reference(cfg: ModelConfig, params: Dict,
 def reference_path(name: str) -> Tuple[str, Optional[int]]:
     """The reference's "/"-joined tree path of the port's parameter
     ``name`` and its layer index (None outside the layers):
-    ``layers.3.attn.wq`` is (``layers/attn/wq``, 3)."""
+    ``layers.3.attn.wq`` is (``layers/attn/wq``, 3),
+    ``encoder.layers.1.mlp.wi`` (``encoder/layers/mlp/wi``, 1) and
+    ``encoder.final_norm`` (``encoder/final_norm``, None)."""
     parts = name.split(".")
-    if parts[0] != "layers":
+    if "layers" not in parts:
         return "/".join(parts), None
-    return "/".join(["layers"] + parts[2:]), int(parts[1])
+    i = parts.index("layers")
+    return "/".join(parts[:i + 1] + parts[i + 2:]), int(parts[i + 1])
+
+
+def stacked_layers(cfg: ModelConfig, path: str) -> int:
+    """The length of the leading layer axis of the reference's array at
+    ``path`` (a path that ``reference_path`` gives a layer index)."""
+    return cfg.encoder_layers if path.startswith("encoder/") \
+        else cfg.num_layers
 
 
 def stack_layers(named: Iterable[Tuple[str, np.ndarray]]

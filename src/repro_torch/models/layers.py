@@ -1,5 +1,6 @@
-"""Model building blocks of the dense, ssm and hybrid families: norms,
-RoPE, GQA attention (prefill and dense-cache decode), the MLP and Mamba-1.
+"""Model building blocks of every family: norms, RoPE, GQA attention
+(prefill, dense-cache decode and cross-attention), the MLP, the top-k MoE
+and Mamba-1.
 
 Parameters live in ``nn.Module``s that keep the reference's names (``wq wk
 wv wo bq bk bv q_norm k_norm``, ``w_gate w_up w_down``, ``wi wo``,
@@ -7,20 +8,23 @@ wv wo bq bk bv q_norm k_norm``, ``w_gate w_up w_down``, ``wi wo``,
 ``[in, out]`` layout, so ``x @ w`` reads as it does there; the functions
 take the module the way the reference's take a parameter dict.
 Parameters are bf16 (``DTYPE``) and drawn from a ``torch.Generator`` on
-the given device, except Mamba's ``A_log`` and ``D``, which are fp32 as
-in the reference.
+the given device, except Mamba's ``A_log`` and ``D`` and the MoE
+``router``, which are fp32 as in the reference.
 
 Where the reference mixes dtypes, JAX promotes (fp32 @ bf16 -> fp32);
 ``torch.matmul`` refuses mixed operands, so ``matmul`` casts both to
 ``torch.promote_types`` first.  Elementwise ops promote alike in both.
 
-The prefill runs attention through ``flash_attention`` and the scan
-through ``selective_scan_fused``: their kernels for CUDA tensors, their
-plain versions for CPU tensors; both are autograd ``Function``s whose
-backward recomputes through a plain version, so training takes the same
-path.  Decode (one token against
-dense caches) stays plain tensor ops, as in the reference.  MoE and
-cross-attention come with later slices.
+The prefill runs attention (causal, the encoder's non-causal and
+cross-attention) through ``flash_attention`` and the scan through
+``selective_scan_fused``: their kernels for CUDA tensors, their plain
+versions for CPU tensors; both are autograd ``Function``s whose backward
+recomputes through a plain version, so training takes the same path.
+Decode's self-attention and scan (one token against dense caches) stay
+plain tensor ops, as in the reference; its cross-attention is the same
+``cross_attention`` as the prefill's, one query against the encoder's
+K/V.  The MoE's expert products are plain batched products, as the
+reference leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -76,6 +80,17 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation, as JAX writes it:
+    x * 0.5 (1 + tanh(c (x + k x^3))) with c = sqrt(2 / pi) and k =
+    0.044715 rounded to x's dtype and each op rounded in it, bit for bit
+    in bf16 (``F.gelu(approximate="tanh")`` rounds once and differs in
+    the last bit of over two fifths of bf16 values)."""
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype, device=x.device)
+    k = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    return x * (0.5 * (1 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
 # ======================================================================
 # norms / rope
 # ======================================================================
@@ -110,10 +125,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # attention
 # ======================================================================
 class Attention(nn.Module):
-    """GQA projections (optional QKV bias and qk-norm)."""
+    """GQA projections (optional QKV bias and qk-norm); a cross-attention
+    block (``cross``) has no QKV bias, as in the reference."""
 
     def __init__(self, cfg: ModelConfig,
-                 gen: Optional[torch.Generator] = None, device=None):
+                 gen: Optional[torch.Generator] = None, device=None,
+                 cross: bool = False):
         super().__init__()
         d, hd = cfg.d_model, cfg.head_dim_
         h, kv = cfg.num_heads, cfg.num_kv_heads
@@ -121,7 +138,7 @@ class Attention(nn.Module):
         self.wk = _dense_init(gen, (d, kv * hd), device)
         self.wv = _dense_init(gen, (d, kv * hd), device)
         self.wo = _dense_init(gen, (h * hd, d), device)
-        if cfg.qkv_bias:
+        if cfg.qkv_bias and not cross:
             self.bq = _zeros((h * hd,), device)
             self.bk = _zeros((kv * hd,), device)
             self.bv = _zeros((kv * hd,), device)
@@ -131,8 +148,8 @@ class Attention(nn.Module):
 
 
 def init_attention(cfg: ModelConfig, gen: Optional[torch.Generator] = None,
-                   device=None) -> Attention:
-    return Attention(cfg, gen, device)
+                   device=None, cross: bool = False) -> Attention:
+    return Attention(cfg, gen, device, cross)
 
 
 def _project_qkv(p: Attention, cfg: ModelConfig, xq: torch.Tensor,
@@ -142,7 +159,7 @@ def _project_qkv(p: Attention, cfg: ModelConfig, xq: torch.Tensor,
     q = matmul(xq, p.wq)
     k = matmul(xkv, p.wk)
     v = matmul(xkv, p.wv)
-    if cfg.qkv_bias:
+    if hasattr(p, "bq"):
         q, k, v = q + p.bq, k + p.bk, v + p.bv
     q = q.reshape(*xq.shape[:-1], h, hd)
     k = k.reshape(*xkv.shape[:-1], kv, hd)
@@ -180,30 +197,146 @@ def init_mlp(cfg: ModelConfig, gen: Optional[torch.Generator] = None,
 
 def mlp(p: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.act == "gelu":
-        # jax.nn.gelu's default is the tanh approximation
-        return matmul(F.gelu(matmul(x, p.wi), approximate="tanh"), p.wo)
+        return matmul(gelu(matmul(x, p.wi)), p.wo)
     return matmul(silu(matmul(x, p.w_gate)) * matmul(x, p.w_up),
                   p.w_down)
+
+
+class MoE(nn.Module):
+    """Top-k MoE parameters: ``router`` [d, E] fp32 (drawn as DTYPE and
+    widened, as the reference's), the experts' ``we_gate``/``we_up``
+    [E, d, f] and ``we_down`` [E, f, d]."""
+
+    def __init__(self, cfg: ModelConfig,
+                 gen: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+        self.router = nn.Parameter(
+            _dense_init(gen, (d, e), device).data.float())
+        self.we_gate = _dense_init(gen, (e, d, f), device, scale_axis=1)
+        self.we_up = _dense_init(gen, (e, d, f), device, scale_axis=1)
+        self.we_down = _dense_init(gen, (e, f, d), device, scale_axis=1)
+
+
+def init_moe(cfg: ModelConfig, gen: Optional[torch.Generator] = None,
+             device=None) -> MoE:
+    return MoE(cfg, gen, device)
+
+
+def moe_capacity(cfg: ModelConfig, s: int) -> int:
+    """Slots an expert has a batch row of ``s`` tokens: S k / E times the
+    capacity factor, at least 1."""
+    return max(int(cfg.capacity_factor * s * cfg.top_k / cfg.num_experts), 1)
+
+
+def moe_route(p: MoE, cfg: ModelConfig, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(weights fp32 [B, S, k], experts int64 [B, S, k]): the top k of the
+    softmax of the fp32 router product (largest first), renormalised."""
+    gates = torch.softmax(matmul(x.float(), p.router), dim=-1)
+    top_w, top_e = torch.topk(gates, cfg.top_k, dim=-1, sorted=True)
+    return top_w / torch.sum(top_w, dim=-1, keepdim=True), top_e
+
+
+def moe_slots(top_e: torch.Tensor, num_experts: int, cap: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(slot, kept) [B, S * k] of each (token, k) pair of a row in its
+    expert's buffer: its rank among the row's pairs that chose that
+    expert, in the flattened (token, k) order; a pair at or past ``cap``
+    is dropped.  The one-hot is laid out [B, E, S * k], so the running
+    count is a scan along the innermost dim (over the reference's
+    [S * k, E] layout, PyTorch's outer-dim scan took ~6 ms a call at
+    OLMoE-1B-7B's prefill on an NVIDIA H100 80GB HBM3 at 700 W, 40% of
+    the prefill's device time)."""
+    flat_e = top_e.reshape(top_e.shape[0], -1)
+    experts = torch.arange(num_experts, device=top_e.device)
+    onehot = (flat_e[:, None, :] == experts[None, :, None]).to(torch.int32)
+    pos_in_e = torch.cumsum(onehot, dim=2, dtype=torch.int32) - onehot
+    pos = torch.gather(pos_in_e, 1, flat_e[:, None, :])[:, 0].long()
+    return pos, pos < cap
+
+
+def moe(p: MoE, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Top-k MoE with dispatch into per-expert buffers of ``moe_capacity``
+    slots a batch row (overflow drops), the experts as three batched
+    products over [B, E, C, d] and the combine in x's dtype: x [B, S, d]
+    -> [B, S, d].
+
+    The combine adds each token's k weighted expert outputs into a zero
+    row one after another, in x's dtype, as the reference's scatter-add
+    does: a sum of the k rounded once in fp32 differs in bf16's last bit.
+    A dropped pair reads its expert's last slot and is zeroed, as there.
+    Nothing in it waits for the card.
+    """
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.top_k
+    cap = moe_capacity(cfg, s)
+    top_w, top_e = moe_route(p, cfg, x)
+    pos, keep = moe_slots(top_e, e, cap)
+    flat_e = top_e.reshape(b, s * k)
+    rows = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
+    tok = torch.arange(s, device=x.device).repeat_interleave(k)
+    # dropped pairs land in a spare slot past the last, cut off after
+    buf = x.new_zeros((b, e, cap + 1, d)).index_put(
+        (rows, flat_e, torch.where(keep, pos, cap)), x[:, tok])[:, :, :cap]
+    h = silu(torch.einsum("becd,edf->becf", buf, p.we_gate)) \
+        * torch.einsum("becd,edf->becf", buf, p.we_up)
+    out_buf = torch.einsum("becf,efd->becd", h, p.we_down)
+    gathered = out_buf[rows, flat_e, torch.clamp(pos, max=cap - 1)]
+    gathered = torch.where(keep[..., None], gathered,
+                           gathered.new_zeros(()))
+    contrib = (gathered * top_w.reshape(b, s * k, 1).to(gathered.dtype)
+               ).reshape(b, s, k, d)
+    out = gathered.new_zeros((b, s, d))
+    for j in range(k):
+        out = out + contrib[:, :, j]
+    return out
 
 
 # ======================================================================
 # attention over a sequence (prefill) and against a dense cache (decode)
 # ======================================================================
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool, window: Optional[int]) -> torch.Tensor:
+    """``flash_attention`` on [B, S, heads, D] tensors -> [B, Sq, H * D]
+    (the kernel on the card, its plain version on the CPU; both keep the
+    softmax weights in fp32 for the product with v)."""
+    b, sq = q.shape[:2]
+    heads = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+    out = flash_ops.flash_attention(*heads, causal=causal, window=window)
+    return out.transpose(1, 2).reshape(b, sq, -1)
+
+
 def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
-              positions: torch.Tensor,
-              window: Optional[int] = None) -> torch.Tensor:
-    """Causal self-attention over a prefill sequence through
-    ``flash_attention`` (the kernel on the card, its plain version on the
-    CPU; both keep the softmax weights in fp32 for the product with v);
-    ``window`` is the layer's sliding window or None for a full-attention
-    layer (the reference encodes full attention as a window of 2**30)."""
-    b, s, _ = x.shape
+              positions: torch.Tensor, window: Optional[int] = None,
+              causal: bool = True) -> torch.Tensor:
+    """Self-attention over a prefill sequence through ``flash_attention``:
+    causal in a decoder (``window`` the layer's sliding window or None for
+    a full-attention layer; the reference encodes full attention as a
+    window of 2**30), bidirectional in the encoder (``causal=False``, RoPE
+    all the same, as the reference's encoder applies it)."""
     q, k, v = _project_qkv(p, cfg, x, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    heads = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
-    out = flash_ops.flash_attention(*heads, causal=True, window=window)
-    return matmul(out.transpose(1, 2).reshape(b, s, -1), p.wo)
+    return matmul(_flash(q, k, v, causal, window), p.wo)
+
+
+def cross_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                    enc_kv: Tuple[torch.Tensor, torch.Tensor]
+                    ) -> torch.Tensor:
+    """Decoder cross-attention against precomputed encoder K/V: x [B, S,
+    d], enc_kv ([B, Skv, KV, D], same) -> [B, S, d].  q from x (qk-norm
+    on q only, no RoPE), non-causal ``flash_attention``; K/V are cast to
+    the promoted dtype of theirs and q's (the kernel takes one dtype)."""
+    b, s, _ = x.shape
+    h, hd = cfg.num_heads, cfg.head_dim_
+    q = matmul(x, p.wq).reshape(b, s, h, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm, cfg.norm_eps)
+    k, v = enc_kv
+    dt = torch.promote_types(q.dtype, k.dtype)
+    out = _flash(q.to(dt), k.to(dt), v.to(dt), False, None)
+    return matmul(out, p.wo)
 
 
 def attention_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,

@@ -1,19 +1,26 @@
-"""Model assembly for the dense, ssm and hybrid families.
+"""Model assembly for every family: dense, moe, ssm, hybrid, encdec and
+vlm.
 
 ``Model`` holds the embedding, one ``DecoderLayer`` per layer in a
 ``ModuleList`` (the reference stacks them on a leading axis for
 ``lax.scan``; here layer ``li`` is ``model.layers[li]`` and the layers run
-in a Python loop), the final norm and the untied LM head.  It is
-initialised from a ``torch.Generator`` on the given device, in bf16 like
-the reference, with Mamba's ``A_log`` and ``D`` in fp32.
+in a Python loop), the final norm, the untied LM head and, for encdec,
+the ``encoder`` (its ``layers`` and ``final_norm``).  It is initialised
+from a ``torch.Generator`` on the given device, in bf16 like the
+reference, with Mamba's ``A_log`` and ``D`` and the MoE router in fp32.
 
 Entry points, as in the reference:
   forward(cfg, model, batch, remat)            -> logits  (train, prefill)
   decode_step(cfg, model, token, len, caches)  -> logits, caches
   init_caches(cfg, batch, max_len)             -> dense decode caches
-The serving engine (``serving/engine.py``) runs the dense layers itself
-against its paged KV pool.  The ``moe``, ``encdec`` and ``vlm`` families
-come with later slices.
+  _encode(cfg, model, frames), encoder_kv(...) -> encdec's cross K/V
+A batch holds ``tokens``, and ``frames`` [B, encoder_seq, d] for encdec
+(the stubbed audio frontend's output) or ``vision_embeds`` [B,
+vision_prefix, d] for vlm (the stubbed vision frontend's, written over
+the first positions).  Decode takes tokens only, as the reference's: an
+encdec model's ``cross_k``/``cross_v`` caches are filled by the caller
+from ``encoder_kv``.  The serving engine (``serving/engine.py``) runs the
+dense layers itself against its paged KV pool.
 """
 from __future__ import annotations
 
@@ -27,32 +34,51 @@ from torch.utils.checkpoint import checkpoint
 from ..config import ModelConfig
 from . import layers as L
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise ValueError(f"{cfg.name}: family {cfg.family!r} is not in the "
-                         f"port yet; it has {', '.join(FAMILIES)}")
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; the "
+                         f"port has {', '.join(FAMILIES)}")
 
 
 class DecoderLayer(nn.Module):
     """Norms and blocks of one layer, named as the reference's: ``attn``
-    except in the ssm family, ``mlp`` when d_ff > 0, ``ssm_norm`` and
-    ``ssm`` in the ssm and hybrid families."""
+    except in the ssm family, ``cross_norm`` and ``cross_attn`` in an
+    encdec decoder (``cross``), ``moe`` for a MoE model or else ``mlp``
+    when d_ff > 0, ``ssm_norm`` and ``ssm`` in the ssm and hybrid
+    families.  The encoder's layers are of this class too."""
 
     def __init__(self, cfg: ModelConfig,
-                 gen: Optional[torch.Generator] = None, device=None):
+                 gen: Optional[torch.Generator] = None, device=None,
+                 cross: bool = False):
         super().__init__()
         self.attn_norm = L._ones((cfg.d_model,), device)
         self.mlp_norm = L._ones((cfg.d_model,), device)
         if cfg.family != "ssm":
             self.attn = L.init_attention(cfg, gen, device)
-        if cfg.d_ff > 0:
+        if cross:
+            self.cross_norm = L._ones((cfg.d_model,), device)
+            self.cross_attn = L.init_attention(cfg, gen, device, cross=True)
+        if cfg.is_moe:
+            self.moe = L.init_moe(cfg, gen, device)
+        elif cfg.d_ff > 0:
             self.mlp = L.init_mlp(cfg, gen, device)
         if cfg.has_ssm:
             self.ssm_norm = L._ones((cfg.d_model,), device)
             self.ssm = L.init_mamba(cfg, gen, device)
+
+
+class Encoder(nn.Module):
+    """An encdec model's encoder: ``layers`` and ``final_norm``."""
+
+    def __init__(self, cfg: ModelConfig,
+                 gen: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.layers = nn.ModuleList(DecoderLayer(cfg, gen, device)
+                                    for _ in range(cfg.encoder_layers))
+        self.final_norm = L._ones((cfg.d_model,), device)
 
 
 class Model(nn.Module):
@@ -69,18 +95,21 @@ class Model(nn.Module):
         self.embed = L._dense_init(gen, (cfg.vocab_size, cfg.d_model),
                                    device, scale_axis=1)
         self.final_norm = L._ones((cfg.d_model,), device)
-        self.layers = nn.ModuleList(DecoderLayer(cfg, gen, device)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(
+            DecoderLayer(cfg, gen, device, cross=cfg.encoder_layers > 0)
+            for _ in range(cfg.num_layers))
         self.lm_head = None if cfg.tie_embeddings else L._dense_init(
             gen, (cfg.d_model, cfg.vocab_size), device)
+        self.encoder = Encoder(cfg, gen, device) if cfg.encoder_layers \
+            else None
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
                dtype: torch.dtype = L.DTYPE) -> Model:
     """A model with random weights drawn on ``device`` from a generator
     seeded with ``seed``.  The parameters the reference draws in bf16 are
-    cast to ``dtype``; the fp32 ones (Mamba's ``A_log`` and ``D``) stay
-    fp32."""
+    cast to ``dtype``; the fp32 ones (Mamba's ``A_log`` and ``D``, the
+    MoE router) stay fp32."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     model = Model(cfg, generator=gen, device=device)
@@ -125,15 +154,20 @@ def _windows(cfg: ModelConfig):
 # ======================================================================
 def embed_inputs(cfg: ModelConfig, model: Model,
                  batch: Dict) -> torch.Tensor:
-    """batch["tokens"]: int [B, S] -> [B, S, d]."""
+    """batch["tokens"]: int [B, S] -> [B, S, d]; a vlm's first positions
+    are ``batch["vision_embeds"]`` [B, P, d] cast to the embedding's
+    dtype."""
+    x = model.embed[batch["tokens"].long()]
     if cfg.vision_prefix:
-        raise ValueError(f"{cfg.name}: the VLM prefix is not in the port "
-                         "yet")
-    return model.embed[batch["tokens"].long()]
+        ve = batch["vision_embeds"]
+        x = torch.cat([ve.to(x.dtype), x[:, ve.shape[1]:]], dim=1)
+    return x
 
 
 def _block(cfg: ModelConfig, x: torch.Tensor, layer: DecoderLayer,
-           positions: torch.Tensor, window: Optional[int]) -> torch.Tensor:
+           positions: torch.Tensor, window: Optional[int],
+           enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+           ) -> torch.Tensor:
     eps = cfg.norm_eps
     if cfg.family == "ssm":
         x = x + L.mamba(layer.ssm, cfg, L.rms_norm(x, layer.ssm_norm, eps))
@@ -146,10 +180,71 @@ def _block(cfg: ModelConfig, x: torch.Tensor, layer: DecoderLayer,
     else:
         h = L.rms_norm(x, layer.attn_norm, eps)
         x = x + L.attention(layer.attn, cfg, h, positions, window)
+    if enc_kv is not None:
+        h = L.rms_norm(x, layer.cross_norm, eps)
+        x = x + L.cross_attention(layer.cross_attn, cfg, h, enc_kv)
+    return _ffn(cfg, x, layer)
+
+
+def _ffn(cfg: ModelConfig, x: torch.Tensor,
+         layer: DecoderLayer) -> torch.Tensor:
+    """The layer's MoE or MLP on its normed input, added to x."""
+    if cfg.is_moe:
+        return x + L.moe(layer.moe, cfg, L.rms_norm(x, layer.mlp_norm,
+                                                    cfg.norm_eps))
     if cfg.d_ff > 0:
-        h = L.rms_norm(x, layer.mlp_norm, eps)
-        x = x + L.mlp(layer.mlp, cfg, h)
+        return x + L.mlp(layer.mlp, cfg, L.rms_norm(x, layer.mlp_norm,
+                                                    cfg.norm_eps))
     return x
+
+
+def _layer(fn, remat: bool, *args) -> torch.Tensor:
+    """``fn(*args)``, under ``torch.utils.checkpoint`` with ``remat``."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _encoder_block(cfg: ModelConfig, x: torch.Tensor, layer: DecoderLayer,
+                   positions: torch.Tensor) -> torch.Tensor:
+    h = L.rms_norm(x, layer.attn_norm, cfg.norm_eps)
+    x = x + L.attention(layer.attn, cfg, h, positions, causal=False)
+    return _ffn(cfg, x, layer)
+
+
+def _encode(cfg: ModelConfig, model: Model, frames: torch.Tensor,
+            remat: bool = False) -> torch.Tensor:
+    """The encoder over frame embeddings [B, S, d] (the stubbed audio
+    frontend's output, cast to the embedding's dtype): bidirectional
+    self-attention with RoPE, as the reference's encoder applies it, then
+    the MLP, a layer at a time, and the final norm -> [B, S, d].  The
+    reference casts the frames to bf16, its parameters' dtype; with fp32
+    parameters its scan refuses the carry that turns fp32, so it runs
+    encdec in bf16 only, where the two casts agree."""
+    enc = model.encoder
+    b, s, _ = frames.shape
+    positions = torch.arange(s, device=frames.device)[None].expand(b, s)
+    x = frames.to(model.embed.dtype)
+    remat = remat and torch.is_grad_enabled()
+    for layer in enc.layers:
+        x = _layer(_encoder_block, remat, cfg, x, layer, positions)
+    return L.rms_norm(x, enc.final_norm, cfg.norm_eps)
+
+
+def encoder_kv(cfg: ModelConfig, model: Model, enc_out: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each decoder layer's cross-attention K and V of the encoder's
+    output [B, S, d]: two [L, B, S, KV, D] tensors (no bias, no
+    qk-norm), as the decode caches hold them."""
+    b, s, _ = enc_out.shape
+    kv, hd = cfg.num_kv_heads, cfg.head_dim_
+    ks, vs = [], []
+    for layer in model.layers:
+        ks.append(L.matmul(enc_out, layer.cross_attn.wk).reshape(b, s, kv,
+                                                                 hd))
+        vs.append(L.matmul(enc_out, layer.cross_attn.wv).reshape(b, s, kv,
+                                                                 hd))
+    return torch.stack(ks), torch.stack(vs)
 
 
 def forward(cfg: ModelConfig, model: Model, batch: Dict,
@@ -159,18 +254,23 @@ def forward(cfg: ModelConfig, model: Model, batch: Dict,
     ``remat`` and grad mode on, each layer runs under
     ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
     scanned layer): only the layer inputs are kept, and the backward runs
-    each layer's forward again, its kernels included."""
+    each layer's forward again, its kernels included.  An encdec model
+    first encodes ``batch["frames"]``; its decoder layers attend to their
+    cross K/V of it and have no window."""
     check_family(cfg)
     x = embed_inputs(cfg, model, batch)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     remat = remat and torch.is_grad_enabled()
-    for layer, window in zip(model.layers, _windows(cfg)):
-        if remat:
-            x = checkpoint(_block, cfg, x, layer, positions, window,
-                           use_reentrant=False)
-        else:
-            x = _block(cfg, x, layer, positions, window)
+    if cfg.encoder_layers:
+        ek, ev = encoder_kv(cfg, model, _encode(cfg, model, batch["frames"],
+                                                remat))
+        for li, layer in enumerate(model.layers):
+            x = _layer(_block, remat, cfg, x, layer, positions, None,
+                       (ek[li], ev[li]))
+    else:
+        for layer, window in zip(model.layers, _windows(cfg)):
+            x = _layer(_block, remat, cfg, x, layer, positions, window)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     if return_hidden:
         return x
@@ -186,7 +286,9 @@ def init_caches(cfg: ModelConfig, batch_size: int, max_len: int,
     [L, B, S, KV, D] bf16 for attention (S = max_len, or the window for a
     sliding-window model without full layers: a ring buffer), ``conv``
     [L, B, kc - 1, di] bf16 and ``ssm`` [L, B, di, N] fp32 for Mamba,
-    whatever the weights' dtype, as in the reference."""
+    ``cross_k``/``cross_v`` [L, B, encoder_seq, KV, D] bf16 for encdec
+    (zeros: the caller writes ``encoder_kv``'s there), whatever the
+    weights' dtype, as in the reference."""
     check_family(cfg)
     nl = cfg.num_layers
     caches: Dict[str, torch.Tensor] = {}
@@ -205,6 +307,11 @@ def init_caches(cfg: ModelConfig, batch_size: int, max_len: int,
         caches["ssm"] = torch.zeros(
             (nl, batch_size, cfg.d_inner_, cfg.ssm_state),
             dtype=torch.float32, device=device)
+    if cfg.encoder_layers:
+        caches["cross_k"] = torch.zeros(
+            (nl, batch_size, cfg.encoder_seq, cfg.num_kv_heads,
+             cfg.head_dim_), dtype=L.DTYPE, device=device)
+        caches["cross_v"] = torch.zeros_like(caches["cross_k"])
     return caches
 
 
@@ -231,7 +338,9 @@ def _decode_block(cfg: ModelConfig, x: torch.Tensor, layer: DecoderLayer,
                   caches: Dict[str, torch.Tensor], li: int,
                   cache_len: torch.Tensor) -> torch.Tensor:
     """Layer ``li`` of one decode step; its caches are updated in place
-    (attention writes the new token's k/v slot into the stacked cache)."""
+    (attention writes the new token's k/v slot into the stacked cache).
+    With ``cross_k`` in the caches, the token then attends to the
+    encoder's K/V through ``cross_attention``."""
     eps = cfg.norm_eps
     if cfg.family == "ssm":
         h = L.rms_norm(x, layer.ssm_norm, eps)
@@ -248,10 +357,12 @@ def _decode_block(cfg: ModelConfig, x: torch.Tensor, layer: DecoderLayer,
         out, _, _ = L.attention_decode(
             layer.attn, cfg, h, caches["k"][li], caches["v"][li], cache_len)
         x = x + out
-    if cfg.d_ff > 0:
-        h = L.rms_norm(x, layer.mlp_norm, eps)
-        x = x + L.mlp(layer.mlp, cfg, h)
-    return x
+    if "cross_k" in caches:
+        h = L.rms_norm(x, layer.cross_norm, eps)
+        x = x + L.cross_attention(layer.cross_attn, cfg, h,
+                                  (caches["cross_k"][li],
+                                   caches["cross_v"][li]))
+    return _ffn(cfg, x, layer)
 
 
 def decode_step(cfg: ModelConfig, model: Model, token: torch.Tensor,

@@ -72,8 +72,10 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
 
     def train_step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
         """batch: ``tokens``/``targets`` int [B, S] on the model's device
-        -> (the state, updated in place; metrics ``loss``, ``grad_norm``,
-        ``lr`` as 0-dim fp32 tensors, read nowhere in the step)."""
+        (and an encdec model's ``frames``, a vlm's ``vision_embeds``; a
+        micro-batch slices every key on its first dim) -> (the state,
+        updated in place; metrics ``loss``, ``grad_norm``, ``lr`` as
+        0-dim fp32 tensors, read nowhere in the step)."""
         model, opt = state["model"], state["opt"]
         names, params = zip(*model.named_parameters())
 
@@ -115,7 +117,8 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
 def make_prefill_step(cfg: ModelConfig):
     @torch.no_grad()
     def prefill_step(model: M.Model, batch: Dict) -> torch.Tensor:
-        """batch["tokens"] [B, S] -> next-token logits [B, V]."""
+        """batch["tokens"] [B, S] (with ``frames`` or ``vision_embeds``
+        as ``forward`` takes them) -> next-token logits [B, V]."""
         # inference forward: remat off (no backward pass to feed)
         hidden = M.forward(cfg, model, batch, remat=False,
                            return_hidden=True)

@@ -1,8 +1,9 @@
 """The port's training stack held against the JAX package.
 
 ``make_train_step`` of ``repro_torch`` against ``repro``'s on the smoke
-configs of the three families the port has (``qwen3-1.7b`` dense,
-``falcon-mamba-7b`` ssm, ``hymba-1.5b`` hybrid), from the reference's
+configs of ``qwen3-1.7b`` (dense), ``falcon-mamba-7b`` (ssm) and
+``hymba-1.5b`` (hybrid) here, and through ``check_train_step`` on the
+moe, encdec and vlm families in tests/test_torch_moe.py, from the reference's
 ``init_state`` with fp32 parameters carried over by
 ``state_from_reference``, on the same batch: loss, grad norm and learning
 rate within 1e-4 relative; the moments within 1e-4 of each tensor's
@@ -62,6 +63,7 @@ from repro_torch.models import steps as S  # noqa: E402
 from repro_torch.models.convert import (reference_leaf,  # noqa: E402
                                         stack_layers, state_from_reference)
 from repro_torch.optim import adamw  # noqa: E402
+from test_torch_models import _ref_dtype  # noqa: E402
 
 ARCHS = ["qwen3-1.7b", "falcon-mamba-7b", "hymba-1.5b"]
 B, SEQ = 4, 24            # SEQ > the hybrid smoke window of 16
@@ -96,12 +98,20 @@ def _ref_state(arch: str):
 
 
 def _batch(cfg, seed: int = 0):
+    """(jnp batch, torch batch) of the same arrays: tokens and targets,
+    and an encdec model's ``frames`` or a vlm's ``vision_embeds`` (fp32)."""
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab_size, (B, SEQ)).astype(np.int32)
-    tgts = rng.integers(0, cfg.vocab_size, (B, SEQ)).astype(np.int32)
-    return ({"tokens": jnp.asarray(toks), "targets": jnp.asarray(tgts)},
-            {"tokens": torch.from_numpy(toks),
-             "targets": torch.from_numpy(tgts)})
+    arrays = {"tokens": rng.integers(0, cfg.vocab_size, (B, SEQ)),
+              "targets": rng.integers(0, cfg.vocab_size, (B, SEQ))}
+    arrays = {k: v.astype(np.int32) for k, v in arrays.items()}
+    if cfg.encoder_layers:
+        arrays["frames"] = rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.vision_prefix:
+        arrays["vision_embeds"] = rng.standard_normal(
+            (B, cfg.vision_prefix, cfg.d_model)).astype(np.float32)
+    return ({k: jnp.asarray(v) for k, v in arrays.items()},
+            {k: torch.from_numpy(v) for k, v in arrays.items()})
 
 
 @functools.lru_cache(maxsize=None)
@@ -152,10 +162,18 @@ def _bf16_ulps(got: torch.Tensor, want) -> int:
 @pytest.mark.parametrize("accum", [1, 2])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_step_matches_reference(arch, accum):
+    check_train_step(arch, accum)
+
+
+def check_train_step(arch: str, accum: int) -> None:
+    """One train step of each package from the same state and batch, then
+    a second on the bf16 parameters the first left (see the module's
+    docstring for what is held and how closely)."""
     cfg, st = _ref_state(arch)
     rb, tb = _batch(cfg)
     step = _ref_train_step(cfg, accum)
-    rs1, rm1 = step(jax.tree.map(jnp.asarray, st), rb)
+    with _ref_dtype(st["params"]):
+        rs1, rm1 = step(jax.tree.map(jnp.asarray, st), rb)
     tcfg, ps = _port(arch)
     grads = _port_grads(tcfg, ps, tb, accum)
     tstep = S.make_train_step(tcfg, TrainConfig(**TC),
@@ -187,8 +205,10 @@ def test_train_step_matches_reference(arch, accum):
         want = reference_leaf(rs1["params"], name)
         assert str(want.dtype) == "bfloat16", name
         assert _bf16_ulps(p, want) <= 1, name
-    # a second step, now on bf16 parameters (A_log and D included)
-    _, rm2 = step(rs1, rb)
+    # a second step, now on bf16 parameters (A_log, D and the router
+    # included)
+    with _ref_dtype(rs1["params"]):
+        _, rm2 = step(rs1, rb)
     _, pm2 = tstep(ps1, tb)
     assert abs(float(pm2["loss"]) - float(rm2["loss"])) \
         <= 2e-2 * abs(float(rm2["loss"]))
@@ -439,8 +459,9 @@ def _stepped(arch: str):
     """The reference's state after one train step (bf16 parameters, A_log
     and D included), numpy leaves."""
     cfg, st = _ref_state(arch)
-    rs1, _ = _ref_train_step(cfg, 1)(jax.tree.map(jnp.asarray, st),
-                                     _batch(cfg)[0])
+    with _ref_dtype(st["params"]):
+        rs1, _ = _ref_train_step(cfg, 1)(jax.tree.map(jnp.asarray, st),
+                                         _batch(cfg)[0])
     return cfg, jax.tree.map(np.asarray, rs1)
 
 
@@ -452,6 +473,10 @@ def _files(d):
 
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "qwen3-1.7b"])
 def test_checkpoint_files_match_reference(tmp_path, arch):
+    check_checkpoint_files(tmp_path, arch)
+
+
+def check_checkpoint_files(tmp_path, arch: str) -> None:
     """The same state saved by each package: the same manifest (keys in
     the same order, shapes, dtype names) and byte-equal npz arrays."""
     cfg, rs1 = _stepped(arch)
@@ -472,11 +497,15 @@ def test_checkpoint_files_match_reference(tmp_path, arch):
 
 
 def test_checkpoints_restore_across_packages(tmp_path):
+    check_restore_across_packages(tmp_path, "hymba-1.5b")
+
+
+def check_restore_across_packages(tmp_path, arch: str) -> None:
     """The port's checkpoint restores in the reference and the
     reference's in the port, each into a fresh state's structure: every
     leaf byte-equal to the saved values after widening, cast to the fresh
-    dtypes (A_log and D back to fp32 in both)."""
-    cfg, rs1 = _stepped("hymba-1.5b")
+    dtypes (A_log and D, and the MoE router, back to fp32 in both)."""
+    cfg, rs1 = _stepped(arch)
     tcfg = get_config(cfg.name)
     ps1 = state_from_reference(tcfg, rs1, "cpu")
     ckpt.save(ps1, 1, str(tmp_path / "port"))
@@ -486,7 +515,10 @@ def test_checkpoints_restore_across_packages(tmp_path):
     assert step == 1
     want_ref, _ = ref_ckpt.restore(RS.state_shapes(cfg),
                                    str(tmp_path / "ref"))
-    assert got_ref["params"]["layers"]["ssm"]["A_log"].dtype == jnp.float32
+    fp32 = [("ssm", "A_log")] if cfg.has_ssm else [("moe", "router")] \
+        if cfg.is_moe else []
+    for block, leaf in fp32:
+        assert got_ref["params"]["layers"][block][leaf].dtype == jnp.float32
     for (path, g), w in zip(jax.tree_util.tree_leaves_with_path(got_ref),
                             jax.tree.leaves(want_ref)):
         assert g.dtype == w.dtype and np.asarray(g).tobytes() \
@@ -500,7 +532,9 @@ def test_checkpoints_restore_across_packages(tmp_path):
         assert p.dtype == f.dtype and p.device.type == "cpu", name
         want = np.asarray(reference_leaf(rs1["params"], name), np.float32)
         assert p.float().detach().numpy().tobytes() == want.tobytes(), name
-    assert got["model"].layers[0].ssm.A_log.dtype == torch.float32
+    for block, leaf in fp32:
+        assert getattr(getattr(got["model"].layers[0], block),
+                       leaf).dtype == torch.float32
     assert int(got["opt"].step) == 1
     assert got["opt"].step.dtype == torch.int32
     for field in ("master", "mu", "nu"):
