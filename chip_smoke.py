@@ -170,7 +170,13 @@ nvcc per source, all started together, into ``build/repro_torch/``, then:
    on the CUDA-core kernel; then one ``make_train_step`` step of each
    family's smoke config on the card and the CPU: loss and grad norm
    within 1e-4, every parameter with a gradient on the card (the fp32
-   router included), 2 flash launches per attention call (remat);
+   router included), 2 flash launches per attention call (remat); and
+   OLMoE's routing on tied gates (a zero router input: 64 equal gates;
+   a router with two equal leading columns) on the card and the CPU:
+   experts and kept slots identical, the lower expert first, as
+   ``jax.lax.top_k`` takes ties; and OLMoE at a capacity factor of 64 /
+   8, where no pair drops, its teacher-forced decode (fp32 caches)
+   within 3e-2 of ``forward`` at every position of 2 x 64 tokens;
 16. the moe, encdec and vlm families at full width: OLMoE-1B-7B (16
    layers) and InternVL2-26B (48 layers, 256 random vision positions)
    on 4 prompts of 2,048 tokens, Mixtral-8x22B cut to 12 of its 56
@@ -187,15 +193,38 @@ nvcc per source, all started together, into ``build/repro_torch/``, then:
    model's window, decode launching only Whisper's 6 cross calls a step;
    finite logits; the decode's logits at the last prompt position within
    3e-2 of the prefill's on InternVL and Whisper (reported, not held, on
-   the moe family: an expert the prefill dropped, or a near-tie, or
-   Mixtral's ring mask, changes them); the cut model leaves at least
-   8 GiB free.  Reported: seconds and tokens/s,
+   the moe family: an expert the prefill dropped, a near-tie among 64
+   gates that bf16 activations of the two paths break apart, or
+   Mixtral's ring mask, changes them; phase 15 holds OLMoE's at a
+   capacity factor with no drop, in fp32); the cut model leaves at
+   least 8 GiB free.  Reported: seconds and tokens/s,
    pairs dropped by capacity, peak memory, one prefill's device time by
    operation and 16 decode steps' under the profiler (busy shares).  The
    first flash call of each signature is kept and timed afterwards with
    CUDA events beside its bound, its plain version and
    ``scaled_dot_product_attention``: the flash row's ``by_model``
-   entries, its launches counted in ``by_path``.
+   entries, its launches counted in ``by_path``;
+17. the control plane, sweeps, drift, serving grid and cluster.  17a:
+   one scenario matrix at ``paper_keys // 64`` keys a store of four cells,
+   ``benchmarks/storage_exps.py``'s ``bench_control`` tenants ("prot" at
+   0.25x and "bulk" at 1.2x a seeded B3 probe's rate, 16 servers) under
+   its pi+knobs feedback policy, a ``rotate`` drift program, a 2-shard
+   range cluster whose shard 1 crashes halfway and a 4-shard range
+   cluster with the rebalancer on a hot range (batched reads of 16),
+   run on the card, on the CPU, on the card in two spawned sweep
+   workers, and on the card with telemetry off: rows byte-identical, the
+   pairs kernel launched on the card and nothing on the CPU; one
+   serving-grid cell (HHZS tiering) with its KV pages on the card and
+   every resident page re-read after every decode step, its rows and
+   stats the CPU's.  17b, on the card, counts zeroed before each cell
+   and read after: ``bench_control``'s HHZS pi+knobs cell at
+   ``paper_keys // 4`` keys for 900 virtual seconds, and
+   ``bench_sharding``'s skew cell (4 range shards, the rebalancer every
+   10 s, a hot range at 9x the probe's rate) for 160 of its 400 virtual
+   seconds: wall seconds, throughput, p99s and goodput, rebalance moves,
+   Bloom launches (at least one pairs launch a cell), the probe stage's
+   host seconds and each shard's resident image bytes.  The Bloom rows of
+   the ``kernels`` line count these paths' launches in ``by_path``.
 
 TF32 is off for matmuls and cuDNN (the defaults for matmuls), so fp32
 products on the card are full fp32.  Each phase prints one JSON line; the
@@ -217,6 +246,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -249,8 +279,10 @@ from repro_torch.kernels.selective_scan import (  # noqa: E402
     selective_scan as scan_kernel)
 from repro_torch.kernels.selective_scan.ref import (  # noqa: E402
     selective_scan_fused_ref, selective_scan_ref)
+from repro_torch.core.middleware import AdmissionConfig  # noqa: E402
 from repro_torch.launch.train import train_loop  # noqa: E402
-from repro_torch.lsm import DB, ScenarioConfig, filters  # noqa: E402
+from repro_torch.lsm import DB, SCALE, ScenarioConfig, filters  # noqa: E402
+from repro_torch.lsm.tree import LSMTree  # noqa: E402
 from repro_torch.models import (encoder_kv, forward,  # noqa: E402
                                 init_caches, init_model, init_state,
                                 layer_windows, make_prefill_step,
@@ -261,7 +293,14 @@ from repro_torch.models import model as M  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.workloads import (YCSB, PoissonArrivals,  # noqa: E402
-                                   run_load, run_open_loop, run_workload)
+                                   ScenarioMatrix, ServingPool,
+                                   ServingWorkload, TenantSpec,
+                                   WorkloadSpec, build_program, run_load,
+                                   run_open_loop, run_serving,
+                                   run_workload, serving_arrivals)
+from repro_torch.workloads.sweep import GridDBFactory, run_sweep  # noqa
+from repro_torch.zoned.device import MiB  # noqa: E402
+from repro_torch.zoned.faults import FaultSpec  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (guide's table)
 CUDA_CORE_OPS_PER_S = 67e12   # H100 SXM non-tensor-core fp32 rate
@@ -286,7 +325,7 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
 # phase 7: the serving path at full size
 SERVE_REQUESTS = 24
 SERVE_NEW_TOKENS = 64
-ALL_PHASES = tuple(range(1, 17))
+ALL_PHASES = tuple(range(1, 18))
 
 
 def emit(**obj) -> None:
@@ -2614,6 +2653,7 @@ def phase_train_main(dev: str = "cuda") -> dict:
 FAMILY_IDENTITY = [("olmoe-1b-7b", 2, 2, 64), ("whisper-base", None, 2, 64),
                    ("internvl2-26b", 2, 2, 272)]   # past the 256 prefix
 FAMILY_IDENT_PROMPT, FAMILY_IDENT_NEW = 8, 8
+NO_DROP_TOKENS = 64           # the MoE's decode vs forward, no pair dropped
 FAMILY_TRAIN = ["olmoe-1b-7b", "whisper-base", "internvl2-26b"]
 FAMILY_TOL = 1e-4
 # phase 16: (model, layers or None for all, prompts, tokens); the decode
@@ -2770,6 +2810,74 @@ def family_train_identity(card_dev, defer) -> dict:
     return out
 
 
+def tied_routes(cfg, model, card_dev) -> dict:
+    """The MoE's routing on tied gates, layer 0's router of ``model`` on the
+    card and on the CPU: a zero router input (all E gates equal) and an
+    input near 1 against a router whose columns 3 and 5 are equal and
+    lead every token's gates.  The experts and kept slots of each case
+    on both devices, and whether the ties went to the lower expert first,
+    as the reference's ``jax.lax.top_k`` takes them."""
+    e, k = cfg.num_experts, cfg.top_k
+    cap = L.moe_capacity(cfg, 64)
+    rng = np.random.default_rng(17)
+    tied = model.layers[0].moe.router.detach().clone()
+    tied[:, 3] = tied[:, 5] = 1.0
+    near_one = 1.0 + 0.1 * rng.standard_normal((2, 64, cfg.d_model))
+    cases = {"zero_input": (torch.zeros(2, 64, cfg.d_model),
+                            model.layers[0].moe.router.detach()),
+             "equal_columns": (torch.from_numpy(near_one.astype(np.float32)),
+                               tied)}
+    want_head = {"zero_input": torch.arange(k), "equal_columns":
+                 torch.tensor([3, 5])}
+    out = {}
+    for case, (x, router) in cases.items():
+        got = {}
+        for dev in (card_dev, "cpu"):
+            p = SimpleNamespace(router=router.to(dev))
+            with torch.no_grad():
+                _, top_e = L.moe_route(p, cfg, x.to(dev))
+                pos, keep = L.moe_slots(top_e, e, cap)
+            got[dev] = (top_e.cpu(), pos.cpu(), keep.cpu())
+        (ce, cp, ck), (he, hp, hk) = got[card_dev], got["cpu"]
+        head = want_head[case]
+        out[case] = {
+            "experts_identical": bool(torch.equal(ce, he)),
+            "kept_identical": bool(torch.equal(cp, hp)
+                                   and torch.equal(ck, hk)),
+            "lower_expert_first": bool(
+                (ce[..., :len(head)] == head).all()),
+            "first_token_experts": ce[0, 0].tolist(),
+            "dropped_pairs": int((~ck).sum())}
+    return out
+
+
+def no_drop_decode(cfg, model, card_dev) -> dict:
+    """The MoE at a capacity factor of E / k, where an expert has a slot
+    for every token of a row and no pair drops, on the card: ``forward``
+    over NO_DROP_TOKENS seeded tokens a row, then ``make_serve_step``
+    teacher-forcing the same tokens into fp32 caches; each position's
+    decode logits against the forward's, relative to the row's largest
+    (held at PREFILL_DECODE_TOL), and the pairs the forward dropped."""
+    cfg = dataclasses.replace(cfg,
+                              capacity_factor=cfg.num_experts / cfg.top_k)
+    model = copy.deepcopy(model).to(card_dev)
+    toks = np.random.default_rng(18).integers(
+        0, cfg.vocab_size, (2, NO_DROP_TOKENS)).astype(np.int32)
+    with ModelRecorder(routes=True) as rec:
+        with torch.no_grad():
+            full = forward(cfg, model, {"tokens": torch.from_numpy(
+                toks).to(card_dev)}).float().cpu()
+        dropped = sum(int((~k).sum()) for k in rec.kept)
+    _, _, logs, nonfinite, _ = serve(cfg, model, toks, 1, card_dev,
+                                     keep_logits=True,
+                                     cache_dtype=torch.float32)
+    dec = torch.stack(logs, 1)
+    err = ((dec - full).abs().amax(-1) / full.abs().amax(-1)).amax()
+    return {"capacity_factor": cfg.capacity_factor,
+            "tokens": list(toks.shape), "dropped_pairs": dropped,
+            "max_rel_err": float(err), "nonfinite": int(nonfinite)}
+
+
 def phase_family_identity(card_dev: str = "cuda") -> dict:
     """Phase 15: each FAMILY_IDENTITY model at full width (cut in depth
     where given), fp32 from one seeded init_model, TF32 off, on the card
@@ -2825,6 +2933,9 @@ def phase_family_identity(card_dev: str = "cuda") -> dict:
              "flash_variants": card["variants"],
              "init_s": init_s, "wall_s": {d: r_["wall_s"]
                                           for d, r_ in runs.items()}}
+        if cfg.is_moe:
+            r["tied_gates"] = tied_routes(cfg, model, card_dev)
+            r["no_drop_decode"] = no_drop_decode(cfg, model, card_dev)
         out[name] = r
         emit(phase15={name: r})
         tag = f"phase 15 {name}"
@@ -2837,6 +2948,17 @@ def phase_family_identity(card_dev: str = "cuda") -> dict:
               f"{tag}: MoE experts and kept slots identical on every call")
         defer(card["nonfinite"] == cpu["nonfinite"] == 0,
               f"{tag}: finite logits")
+        nd = r.get("no_drop_decode")
+        defer(nd is None or (nd["dropped_pairs"] == 0 and nd["nonfinite"]
+                             == 0 and nd["max_rel_err"]
+                             <= PREFILL_DECODE_TOL),
+              f"{tag} at capacity factor E / k: no pair dropped, decode "
+              f"within {PREFILL_DECODE_TOL} of forward at every position")
+        for case, t in r.get("tied_gates", {}).items():
+            defer(t["experts_identical"] and t["kept_identical"]
+                  and t["lower_expert_first"],
+                  f"{tag} tied gates ({case}): experts and kept slots "
+                  "identical on card and CPU, the lower expert first")
         n = sum(want.values())
         defer(card["kinds"] == want
               and card["launches"]["flash_attention"] == n
@@ -2963,6 +3085,7 @@ def phase_family_main(name: str, layers, b: int, t: int,
         cfg, model, tail[:, :8], BUSY_STEPS - 7, dev, keep_logits=False,
         caches=caches, start=n0)) / BUSY_STEPS
     flash_ops_ = [(ms, n) for key, ms, n in ops if "flash_fwd" in key]
+    sort_ops = [(ms, n) for key, ms, n in ops if "sort" in key.lower()]
     out = {
         "model": cfg.name, "layers": cfg.num_layers,
         "of_layers": get_config(name).num_layers,
@@ -2983,6 +3106,8 @@ def phase_family_main(name: str, layers, b: int, t: int,
                           "launches": sum(n for _, n in flash_ops_),
                           "share": sum(ms for ms, _ in flash_ops_)
                           / prefill_dev},
+        "prefill_sort": {"device_ms": sum(ms for ms, _ in sort_ops),
+                         "launches": sum(n for _, n in sort_ops)},
         "decode_device_ms_per_step": step_dev,
         "decode_wall_ms_per_step": 1e3 * decode_s / steps,
         "decode_busy_share": step_dev * steps / (1e3 * decode_s)}
@@ -3145,6 +3270,379 @@ def merge_training(kernels: list, launched: dict, variants: dict) -> None:
                     row["launches_by_variant"][kind] += n
 
 
+# ----------------------------------------------------------------------
+# phase 17: the control plane, sweeps, drift, serving grid and cluster
+# ----------------------------------------------------------------------
+# 17a: one matrix of four cells at paper_keys // 64 keys, on the card, on
+# the CPU, on the card in two spawned workers, and on the card with
+# telemetry off; virtual seconds of its cells (the drift cell runs the
+# rotate program's four phases instead)
+IDENT_KEY_DIV, IDENT_LOAD_DIV, IDENT_PERIOD = 16, 4, 5.0
+IDENT_DURATION, IDENT_WARMUP, IDENT_PHASE_S = 20.0, 2.0, 5.0
+IDENT_WORKERS = 2
+IDENT_READ_BATCH = 16
+# 17b: bench_control's HHZS pi+knobs cell and bench_sharding's skew cell
+# with the rebalancer (benchmarks/storage_exps.py), on the card
+CONTROL_LOAD_DIV = 4                      # paper_keys // 4 keys
+CONTROL_DURATION, CONTROL_WARMUP = 900.0, 90.0
+SHARD_KEY_DIV, SHARD_LOAD_DIV, SHARD_PERIOD = 16, 8, 10.0
+SHARD_DURATION = 160.0    # bench_sharding's 400 s cut, four dwell phases
+SHARD_WARMUP = 16.0
+MIX = WorkloadSpec("mix", read=0.5, update=0.5, alpha=0.9)
+BULK_MIX = WorkloadSpec("bulkmix", read=0.5, update=0.5, alpha=0.9)
+UNIFORM_MIX = WorkloadSpec("shmix", read=0.5, update=0.5, alpha=0.01)
+
+
+@dataclasses.dataclass
+class CellList(ScenarioMatrix):
+    """A scenario matrix over an explicit tuple of resolved cells of any
+    kind (multi-tenant, drift, sharded single-stream): each cell carries
+    its own tenants, program, shards and fault, the matrix the sizing,
+    store factory, telemetry and device they share."""
+
+    picked: tuple = ()
+
+    def cells(self) -> list:
+        return list(self.picked)
+
+
+def control_probe(factory) -> dict:
+    """bench_control's anchors from a seeded closed-loop probe of a B3
+    store: the mix's service rate, the protected tenant's p99 target
+    (1.5x the probe's p99) and the debt threshold (1.5x the standing
+    backlog plus 256 MiB at scale)."""
+    probe = factory("B3", 20)
+    pr = run_workload(probe, MIX, n_ops=2000, n_keys=probe.n_keys)
+    return {"n_keys": probe.n_keys, "svc": max(pr.throughput, 1e-6),
+            "slo": round(1.5 * pr.latency_p["p99"], 4),
+            "debt": round(1.5 * float(probe.tree.compaction_debt())
+                          + 256 * MiB / SCALE, 1)}
+
+
+def control_tenants(a: dict) -> tuple:
+    """bench_control's tenants and its pi+knobs feedback policy: "prot"
+    (Poisson at 0.25x the probe's rate, p99 target) and "bulk" (1.2x,
+    its target 1.5x prot's) under the PI law over all four knobs."""
+    bulk = round(1.2 * a["svc"], 4)
+    mix = (TenantSpec("prot", MIX, PoissonArrivals(round(0.25 * a["svc"],
+                                                         4)),
+                      protected=True, slo_p99=a["slo"]),
+           TenantSpec("bulk", BULK_MIX, PoissonArrivals(bulk),
+                      slo_p99=round(1.5 * a["slo"], 4)))
+    policy = AdmissionConfig(
+        policy="feedback", bucket_rates={"bulk": (bulk, 20.0)},
+        debt_threshold=a["debt"], label="pi+knobs", queue_threshold=8,
+        feedback_interval=2.5, feedback_window=60,
+        feedback_controller="pi", feedback_kp=2.0, feedback_ki=0.5,
+        feedback_smooth=1.0, feedback_rise=0.08,
+        feedback_knobs=("admission", "compaction", "migration", "cache"))
+    return mix, policy
+
+
+def hot_spec(rate: float, duration: float, n_keys: int) -> WorkloadSpec:
+    """bench_sharding's drifting hot range: four dwell phases a run."""
+    return WorkloadSpec("shhot", read=0.5, update=0.5, alpha=0.99,
+                        dist="hotspot",
+                        hotspot_period=int(rate * duration / 4),
+                        hotspot_step=n_keys // 4)
+
+
+def identity_cells(a: dict) -> tuple:
+    """17a's cells: bench_control's two tenants under pi+knobs, a rotate
+    drift program, a 2-shard range cluster whose shard 1 crashes halfway,
+    and a 4-shard range cluster with the rebalancer on a hot range."""
+    n, svc = a["n_keys"], a["svc"]
+    mix, policy = control_tenants(a)
+    tenants = ScenarioMatrix(
+        schemes=["HHZS"], workloads=[], arrivals=[], tenants=[mix],
+        policies=[policy], drift_programs=[build_program(
+            "rotate", svc=round(svc, 4), n_keys=n, phase_s=IDENT_PHASE_S)])
+    crash = ScenarioMatrix(
+        schemes=["HHZS"], workloads=[UNIFORM_MIX],
+        arrivals=[PoissonArrivals(round(svc, 4))], shards=[2],
+        routing="range", faults=[FaultSpec(
+            name="crash-s1", crash_at=IDENT_DURATION / 2, crash_shard=1,
+            recovery_slo_s=10.0)])
+    rate = round(2.0 * svc, 4)
+    skew = ScenarioMatrix(
+        schemes=["HHZS"], workloads=[hot_spec(rate, IDENT_DURATION, n)],
+        arrivals=[PoissonArrivals(rate)], shards=[4], routing="range",
+        rebalance=[True])
+    return tuple(tenants.cells() + crash.cells() + skew.cells())
+
+
+def identity_matrix(cells: tuple, dev: str, telemetry: bool) -> CellList:
+    return CellList(
+        schemes=[], workloads=[], arrivals=[], picked=cells,
+        duration=IDENT_DURATION, warmup=IDENT_WARMUP, max_concurrency=16,
+        key_div=IDENT_KEY_DIV, read_batch=IDENT_READ_BATCH,
+        db_factory=GridDBFactory(key_div=IDENT_KEY_DIV,
+                                 load_div=IDENT_LOAD_DIV,
+                                 rebalance_period=IDENT_PERIOD,
+                                 torch_device=dev),
+        telemetry=telemetry, torch_device=dev)
+
+
+class ProbeStage:
+    """Times every tree's probe stage (``LSMTree._probe_slots`` and
+    ``_probe_pairs_real``, a call inside another once) while it is
+    entered, across the trees a cell makes, crashes and reopens."""
+
+    NAMES = ("_probe_slots", "_probe_pairs_real")
+
+    def __init__(self):
+        self.seconds, self._depth = 0.0, 0
+        self._orig = {n: getattr(LSMTree, n) for n in self.NAMES}
+
+    def __enter__(self):
+        stage = self
+
+        def timed(fn):
+            def call(*a, **kw):
+                if stage._depth:
+                    return fn(*a, **kw)
+                stage._depth, t0 = 1, time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    stage.seconds += time.perf_counter() - t0
+                    stage._depth = 0
+            return call
+        for n, fn in self._orig.items():
+            setattr(LSMTree, n, timed(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._orig.items():
+            setattr(LSMTree, n, fn)
+
+
+class KeepStores:
+    """A store factory that keeps every store it makes."""
+
+    def __init__(self, factory):
+        self.factory, self.made = factory, []
+
+    def __call__(self, *args, **kw):
+        db = self.factory(*args, **kw)
+        self.made.append(db)
+        return db
+
+
+def resident_bytes(db) -> list:
+    """Bytes of each shard's store image resident on the card."""
+    out = []
+    for shard in getattr(db, "shards", [db]):
+        image = shard.tree._store_image()
+        out.append(image.resident.n_words * 4
+                   if image.resident is not None else 0)
+    return out
+
+
+def run_identity(cells: tuple, dev: str, telemetry: bool,
+                 workers: int = 0) -> tuple:
+    """(rows as JSON, launches, wall seconds) of the 17a matrix, the
+    launch counts zeroed just before and read just after (workers launch
+    in their own processes)."""
+    kernel.reset_launches()
+    t0 = time.perf_counter()
+    rows = run_sweep(identity_matrix(cells, dev, telemetry), out=None,
+                     workers=workers, verbose=False)
+    sync(dev)
+    return (json.dumps(rows, sort_keys=True), dict(kernel.launches),
+            time.perf_counter() - t0)
+
+
+SERVING_WL = ServingWorkload(name="chat", prompt_med=24, prompt_max=64,
+                             out_med=12, out_max=32, pause_prob=0.02,
+                             pause_mean=2.0, slo_ttft=2.0)
+
+
+def serving_verify(dev: str) -> tuple:
+    """One serving-grid cell (HHZS tiering, Poisson at 2 sequences/s, a
+    6-zone device tier) with its KV pages materialized on ``dev``, every
+    resident page re-read after every decode step: (rows and stats as
+    JSON, the device tier's device, wall seconds)."""
+    built, orig = [], ServingPool.build
+
+    def build(pool, *args, **kw):
+        built.append(orig(pool, *args, **kw))
+        return built[-1]
+    ServingPool.build = build
+    try:
+        t0 = time.perf_counter()
+        res = run_serving(
+            [TenantSpec("t0", SERVING_WL,
+                        serving_arrivals(("poisson",), 2.0)[0],
+                        protected=True, slo_p99=2.0)],
+            "hhzs", pool=ServingPool(hbm_zones=6, host_zones=48),
+            duration=25.0, warmup=5.0, seed=3, materialize=True,
+            verify="step", torch_device=dev)
+        sync(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        ServingPool.build = orig
+    return (json.dumps([res.rows, res.stats], sort_keys=True),
+            built[0][0].k.device.type, wall)
+
+
+def phase_control_identity(paper_keys: int,
+                           card_dev: str = "cuda") -> dict:
+    """17a: the matrix's rows on the card, on the CPU, on the card in
+    spawned workers and on the card with telemetry off: all byte-equal;
+    the card's run launched the pairs kernel, the CPU's none; then the
+    serving cell on the card and the CPU."""
+    t0 = time.perf_counter()
+    anchors = control_probe(GridDBFactory(key_div=IDENT_KEY_DIV,
+                                          load_div=IDENT_LOAD_DIV,
+                                          torch_device=card_dev))
+    check(anchors["n_keys"] == paper_keys // 64,
+          "phase 17a: paper_keys // 64 keys a store")
+    cells = identity_cells(anchors)
+    probe_s = time.perf_counter() - t0
+    runs = {"card": run_identity(cells, card_dev, True),
+            "cpu": run_identity(cells, "cpu", True),
+            "card_workers": run_identity(cells, card_dev, True,
+                                         IDENT_WORKERS),
+            "card_telemetry_off": run_identity(cells, card_dev, False)}
+    rows = {k: r[0] for k, r in runs.items()}
+    serving = {k: serving_verify(dev)
+               for k, dev in (("card", card_dev), ("cpu", "cpu"))}
+    parsed = json.loads(rows["card"])
+    out = {"n_keys": anchors["n_keys"], "anchors": anchors,
+           "probe_s": probe_s, "cells": [c.name for c in cells],
+           "rows": len(parsed), "row_bytes": len(rows["card"]),
+           "rows_identical": len(set(rows.values())) == 1,
+           "launches": {k: r[1] for k, r in runs.items()},
+           "wall_s": {k: r[2] for k, r in runs.items()},
+           "splits": [len(r.get("splits", [])) for r in parsed
+                      if "shards" in r and "shard" not in r],
+           "crash": [r.get("crash") for r in parsed if r.get("crash")],
+           "serving_rows_identical": serving["card"][0] == serving["cpu"][0],
+           "serving_device_tier": {d: v[1] for d, v in serving.items()},
+           "serving_wall_s": {d: v[2] for d, v in serving.items()}}
+    check(len(cells) == 4, "phase 17a: four cells")
+    check(out["rows_identical"],
+          "phase 17a: rows equal on card, CPU, spawned workers, and with "
+          "telemetry off, byte for byte")
+    check(runs["card"][1]["bloom_probe_pairs"] > 0,
+          "phase 17a: the card's run launched the pairs kernel")
+    check(not any(runs["cpu"][1].values()),
+          "phase 17a: the CPU's run launched no kernel")
+    check(out["crash"] and out["splits"] and max(out["splits"]) > 0,
+          "phase 17a: the crash fired and the rebalancer moved a range")
+    check(out["serving_rows_identical"]
+          and out["serving_device_tier"] == {
+              "card": torch.device(card_dev).type, "cpu": "cpu"},
+          "phase 17a: the verify-step serving cell, its device tier on "
+          "the card, gives the CPU's rows and stats")
+    return out
+
+
+def run_cell(matrix, cell, dev) -> dict:
+    """One cell on ``dev`` with the launch counts zeroed just before and
+    read just after: rows, launches, the probe stage's host seconds and
+    the stores' resident image bytes."""
+    keep = KeepStores(matrix.db_factory)
+    matrix.db_factory = keep
+    with ProbeStage() as stage:
+        kernel.reset_launches()
+        t0 = time.perf_counter()
+        _, rows = matrix.run_cell(cell)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        launched = dict(kernel.launches)
+    (db,) = keep.made
+    agg = [r for r in rows if "shard" not in r]
+    return {"cell": cell.name, "wall_s": wall, "launches": launched,
+            "probe_stage_s": stage.seconds,
+            "probe_stage_share": stage.seconds / wall,
+            "resident_image_bytes": resident_bytes(db),
+            "throughput": sum(r["throughput"] for r in agg),
+            "goodput": sum(r.get("goodput") or 0.0 for r in agg),
+            "p99_s": {r.get("tenant") or "all": r["latency_p"]["p99"]
+                      for r in agg},
+            "rebalance_moves": len(getattr(db, "splits", [])),
+            "moved_keys": sum(sp.get("moved_keys", 0)
+                              for sp in getattr(db, "splits", [])),
+            "rows": rows}
+
+
+def phase_control_main(paper_keys: int, dev: str = "cuda") -> dict:
+    """17b: bench_control's HHZS pi+knobs cell at paper_keys // 4 keys (16
+    servers, CONTROL_DURATION virtual seconds) and bench_sharding's skew
+    cell (4 range shards, the rebalancer every 10 s, a hot range at 9x
+    the probe's rate, SHARD_DURATION virtual seconds), each on the card."""
+    out = {}
+    t0 = time.perf_counter()
+    factory = GridDBFactory(key_div=1, load_div=CONTROL_LOAD_DIV,
+                            torch_device=dev)
+    anchors = control_probe(factory)
+    mix, policy = control_tenants(anchors)
+    matrix = ScenarioMatrix(
+        schemes=["HHZS"], workloads=[], arrivals=[], tenants=[mix],
+        policies=[policy], ssd_zone_budgets=[20],
+        duration=CONTROL_DURATION, warmup=CONTROL_WARMUP,
+        max_concurrency=16, db_factory=factory, telemetry=True,
+        torch_device=dev)
+    (cell,) = matrix.cells()
+    out["control"] = {"n_keys": anchors["n_keys"], "anchors": anchors,
+                      "probe_s": time.perf_counter() - t0,
+                      "virtual_s": [CONTROL_DURATION, CONTROL_WARMUP],
+                      **run_cell(matrix, cell, dev)}
+    check(out["control"]["n_keys"] == paper_keys // CONTROL_LOAD_DIV,
+          "phase 17b control: paper_keys // 4 keys")
+    out["control"]["prot_p99_s"] = out["control"]["p99_s"]["prot"]
+    t0 = time.perf_counter()
+    factory = GridDBFactory(key_div=SHARD_KEY_DIV, load_div=SHARD_LOAD_DIV,
+                            rebalance_period=SHARD_PERIOD,
+                            torch_device=dev)
+    probe = factory("HHZS", 20)
+    svc = max(run_workload(probe, UNIFORM_MIX, n_ops=2000,
+                           n_keys=probe.n_keys).throughput, 1e-6)
+    rate = round(9.0 * svc, 4)
+    matrix = ScenarioMatrix(
+        schemes=["HHZS"], ssd_zone_budgets=[20],
+        workloads=[hot_spec(rate, SHARD_DURATION, probe.n_keys)],
+        arrivals=[PoissonArrivals(rate)], shards=[4], routing="range",
+        rebalance=[True], duration=SHARD_DURATION, warmup=SHARD_WARMUP,
+        key_div=SHARD_KEY_DIV, db_factory=factory, torch_device=dev)
+    (cell,) = matrix.cells()
+    out["sharding"] = {"n_keys": probe.n_keys, "svc": svc, "rate": rate,
+                       "probe_s": time.perf_counter() - t0,
+                       "virtual_s": [SHARD_DURATION, SHARD_WARMUP],
+                       **run_cell(matrix, cell, dev)}
+    del probe
+    for name, r in out.items():
+        rows = r.pop("rows")
+        r["row_bytes"] = len(json.dumps(rows))
+        check(r["launches"]["bloom_probe_pairs"] > 0,
+              f"phase 17b {name}: the cell's reads launched the pairs "
+              "kernel")
+        check(all(b > 0 for b in r["resident_image_bytes"]),
+              f"phase 17b {name}: every shard's filters resident on the "
+              "card")
+        check(all(np.isfinite(v) for v in r["p99_s"].values()),
+              f"phase 17b {name}: finite latencies")
+    check(out["sharding"]["rebalance_moves"] > 0,
+          "phase 17b sharding: the rebalancer moved a range")
+    return out
+
+
+def merge_store_paths(kernels: list, paths: dict) -> None:
+    """Give the two Bloom rows a ``by_path`` entry: phase 3's main path,
+    which the row's ``launches`` held, and each of phase 17's paths,
+    which it now includes."""
+    for row in kernels:
+        name = row["name"]
+        if name not in kernel.launches:
+            continue
+        row["by_path"] = {"YCSB-C open loop (phase 3)": row["launches"]}
+        for path, launched in paths.items():
+            row["by_path"][path] = launched[name]
+            row["launches"] += launched[name]
+
+
 def timings(card: str, kernels: list) -> dict:
     return {"card": card, "kernels": [
         {k: v for k, v in d.items() if k in (
@@ -3161,7 +3659,7 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
                     help="comma-separated phases to run (4 needs 3, 8 "
                          "needs 7, 12 needs 11); the result lines print "
-                         "only when all sixteen run")
+                         "only when all seventeen run")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
     for later, first in ((4, 3), (8, 7), (12, 11)):
         if later in phases and first not in phases:
@@ -3275,6 +3773,19 @@ def main() -> int:
         torch.cuda.empty_cache()
         emit(phase16_flash=by_shape, seconds=seconds(), card=card)
         merge_families(kernels, by_shape, family_out)
+    if 17 in phases:
+        ident = phase_control_identity(paper_keys)
+        emit(phase17a=ident, card=card, seconds=seconds())
+        cells = phase_control_main(paper_keys)
+        emit(phase17b=cells, card=card, seconds=seconds())
+        merge_store_paths(kernels, {
+            "17a matrix on the card (phase 17)": ident["launches"]["card"],
+            "17a matrix, telemetry off (phase 17)":
+                ident["launches"]["card_telemetry_off"],
+            "bench_control pi+knobs (phase 17)":
+                cells["control"]["launches"],
+            "bench_sharding skew, rebalanced (phase 17)":
+                cells["sharding"]["launches"]})
     if phases != set(ALL_PHASES):
         return 0
     emit(kernels=kernels)

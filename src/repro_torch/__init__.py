@@ -17,9 +17,16 @@ the reference the port is tested against.  Ported so far:
 * slice 7, training: data, optim (AdamW), checkpoint (the reference's
   on-disk layout), ft and ``launch.train.train_loop``, on one device,
   through the same kernels (their autograd ``Function``s recompute the
-  backward through the plain versions).
+  backward through the plain versions);
+* slice 8, the moe, encdec and vlm model families;
+* slice 9, the rest of the storage system: obs (telemetry and the SLO
+  control plane), the multi-tenant runner, ``ScenarioMatrix`` and the
+  sweep driver, drift programs, the serving DES grid and the sharded
+  cluster (``cluster``), every read through the Bloom-probe kernel.
 
-Entry points (``lsm.DB``, ``serving.ServingEngine``,
+Entry points (``lsm.DB``, ``cluster.ShardedDB``,
+``workloads.ScenarioMatrix``, ``workloads.sweep.GridDBFactory``,
+``workloads.run_serving``, ``serving.ServingEngine``,
 ``launch.train.train_loop``) put their data and kernels on the CUDA card
 unless the caller passes ``torch_device="cpu"`` (``device="cpu"`` for the
 train loop), which takes the kernels' plain PyTorch versions.

@@ -19,9 +19,7 @@ still takes ~8 virtual hours), with 1/SCALE the number of simulated
 operations.  Reported OPS are therefore paper-OPS / SCALE.
 
 Bloom filter images and probes live on ``DB(torch_device=...)``: the CUDA
-card by default, the CPU only when the caller asks for it.  The telemetry
-bus of the reference (``DB(telemetry=...)``, ``enable_telemetry``) is not
-ported yet.
+card by default, the CPU only when the caller asks for it.
 """
 from __future__ import annotations
 
@@ -100,6 +98,7 @@ class DB:
                  scenario: Optional[ScenarioConfig] = None,
                  store_values: bool = False,
                  admission: "AdmissionConfig | str" = "none",
+                 telemetry: "bool | float" = False,
                  sim: Optional[Sim] = None,
                  torch_device: str = "cuda"):
         base = scheme.split("+")[0]
@@ -143,7 +142,36 @@ class DB:
         self.admission.debt_gauge = lambda: float(self.tree.compaction_debt())
         self._crashed = False
         self.recovery: Optional[dict] = None   # stats of the last reopen()
+        # telemetry bus (repro_torch.obs): off by default; telemetry=True
+        # attaches a MetricsRegistry at the default sample period, a float
+        # sets the period in virtual seconds
+        self.metrics = None
+        if telemetry:
+            self.enable_telemetry(
+                5.0 if telemetry is True else float(telemetry))
         self.backend.start()
+
+    # ---- telemetry (repro_torch.obs) ----------------------------------
+    def enable_telemetry(self, sample_period: float = 5.0,
+                         capacity: int = 720):
+        """Attach a ``MetricsRegistry`` sampling every layer's signals on
+        the DES clock; idempotent.  Returns the registry.
+
+        All built-in signals are pull gauges over state the layers already
+        maintain, so enabling telemetry never changes the virtual-time
+        history of a run."""
+        if self.metrics is not None:
+            return self.metrics
+        from ..obs import MetricsRegistry
+        reg = MetricsRegistry(self.sim, sample_period, capacity)
+        self.ssd.install_metrics(reg, "ssd")
+        self.hdd.install_metrics(reg, "hdd")
+        self.backend.install_metrics(reg)
+        self.tree.install_metrics(reg)
+        self.admission.install_metrics(reg)
+        reg.start()
+        self.metrics = reg
+        return reg
 
     # ---- store interface (repro_torch.workloads.* target this) --------
     # The open-loop runners, OpStream and the scenario matrix talk to any
@@ -198,6 +226,8 @@ class DB:
             policy if policy is not None else orig_base)
         self.admission.base_cfg = orig_base
         self.admission.debt_gauge = lambda: float(self.compaction_debt())
+        if self.metrics is not None:
+            self.admission.install_metrics(self.metrics)
         return self.admission
 
     # ---- synchronous helpers (tests / examples) -----------------------
@@ -328,6 +358,11 @@ class DB:
         # restart background machinery (placement monitor, migrator loop)
         be.start()
         tree._kick_background()
+        if self.metrics is not None:
+            # the sampler process died with the crash; gauges over the old
+            # tree are rebound to the recovered one, then sampling resumes
+            tree.install_metrics(self.metrics)
+            self.metrics.restart()
         self._crashed = False
         self.recovery = {"at": sim.now,
                          "live_wal_zones": len(be._wal_records),

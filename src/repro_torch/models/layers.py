@@ -232,9 +232,14 @@ def moe_capacity(cfg: ModelConfig, s: int) -> int:
 def moe_route(p: MoE, cfg: ModelConfig, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(weights fp32 [B, S, k], experts int64 [B, S, k]): the top k of the
-    softmax of the fp32 router product (largest first), renormalised."""
+    softmax of the fp32 router product (largest first), renormalised.
+
+    Equal gates go to the lower expert first, as ``jax.lax.top_k`` picks
+    them: a stable descending sort cut to k (``torch.topk`` leaves the
+    order of ties unspecified)."""
     gates = torch.softmax(matmul(x.float(), p.router), dim=-1)
-    top_w, top_e = torch.topk(gates, cfg.top_k, dim=-1, sorted=True)
+    top_w, top_e = torch.sort(gates, dim=-1, descending=True, stable=True)
+    top_w, top_e = top_w[..., :cfg.top_k], top_e[..., :cfg.top_k]
     return top_w / torch.sum(top_w, dim=-1, keepdim=True), top_e
 
 

@@ -8,8 +8,8 @@ CPU tensors).  Tolerances are those of ``tests/test_kernels.py``: fp32
 rounding of the output).  bf16 inputs are rounded once, by JAX, and the
 same values go to both packages.
 
-The CUDA kernels run only on the card: the ``gpu`` tests decide inside
-their fixture whether a card and ``nvcc`` are present, and skip here.
+The CUDA kernels run only on the card: ``tests/test_torch_gpu.py`` holds
+them against these plain versions there.
 """
 import math
 
@@ -28,7 +28,6 @@ from repro.kernels.paged_attention.paged_attention import (  # noqa: E402
     paged_attention_decode as pallas_paged)
 from repro.kernels.paged_attention.ref import (  # noqa: E402
     paged_attention_ref as jax_paged_ref)
-from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention as flash_kernel)
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
@@ -256,52 +255,3 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA kernel"):
         paged_kernel.paged_attention_decode(
             q, kp, vp, torch.from_numpy(tables), torch.from_numpy(lens))
-
-
-# ----------------------------------------------------------------------
-# on the card: each kernel against its plain version
-# ----------------------------------------------------------------------
-@pytest.fixture
-def card():
-    """The CUDA device with both kernels built, or a skip with the
-    reason."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    try:
-        _build.nvcc_path()
-    except RuntimeError as err:
-        pytest.skip(str(err))
-    flash_kernel.load()
-    paged_kernel.load()
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,h,kv,s,d", FLASH_SHAPES + [(1, 16, 8, 1000, 128),
-                                                       (1, 16, 8, 1531, 128),
-                                                       HYMBA_FLASH])
-@pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("causal,window", MASKS)
-def test_flash_kernel_matches_plain(card, b, h, kv, s, d, dtype, causal,
-                                    window):
-    args = [t.to(card) for _, t in _flash_inputs(7, b, h, kv, s, d, dtype)]
-    got = flash_kernel.flash_attention_fwd(*args, causal=causal,
-                                           window=window)
-    want = attention_ref(*args, causal=causal, window=window)
-    torch.cuda.synchronize()
-    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,kv,g,pages,ps,mp,d",
-                         PAGED_SHAPES + [(1, 8, 2, 512, 16, 80, 128)])
-@pytest.mark.parametrize("dtype", list(DTYPES))
-def test_paged_kernel_matches_plain(card, b, kv, g, pages, ps, mp, d, dtype):
-    (_, q), (_, kp), (_, vp), tables, lens = _paged_inputs(
-        8, b, kv, g, pages, ps, mp, d, dtype)
-    args = [q.to(card), kp.to(card), vp.to(card),
-            torch.from_numpy(tables).to(card), torch.from_numpy(lens).to(card)]
-    got = paged_kernel.paged_attention_decode(*args)
-    want = paged_attention_ref(*args)
-    torch.cuda.synchronize()
-    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))

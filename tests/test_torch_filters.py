@@ -7,9 +7,8 @@ is an integer bit image or a boolean hit mask, so every comparison here is
 exact: no tolerance.  Keys include the adversarial set of
 ``tests/test_filters.py`` (0, 2**64-1 twice, a duplicate run).
 
-The CUDA kernel itself runs only on the card: ``test_kernel_matches_plain``
-carries the ``gpu`` marker and decides inside its fixture whether a card
-and ``nvcc`` are present.
+The CUDA kernels themselves run only on the card:
+``tests/test_torch_gpu.py`` holds them against the plain versions there.
 """
 import numpy as np
 import pytest
@@ -23,7 +22,6 @@ from repro.kernels.bloom_probe.ref import (  # noqa: E402
     build_filter as jax_build_filter)
 from repro.lsm import filters as ref_filters  # noqa: E402
 from repro.lsm.sstable import _mix64 as ref_mix64  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.bloom_probe import bloom_probe as kernel  # noqa: E402
 from repro_torch.kernels.bloom_probe import ops, ref  # noqa: E402
 from repro_torch.lsm import filters  # noqa: E402
@@ -337,36 +335,3 @@ def test_from_reference_sst_arrays_copies_the_image():
         (7, 2, ref_sst.filter_k, ref_sst.num_objs)
     filters.attach_filter(sst, 10)        # rebuilt by the port: same image
     assert np.array_equal(sst.filter_words, ref_sst.filter_words)
-
-
-# ----------------------------------------------------------------------
-@pytest.fixture
-def card():
-    """The CUDA device with the kernel built, or a skip with the reason."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    try:
-        _build.nvcc_path()
-    except RuntimeError as err:
-        pytest.skip(str(err))
-    kernel.load()
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-def test_kernel_matches_plain(card):
-    """Both CUDA launchers equal their plain versions bit for bit."""
-    rng = np.random.default_rng(13)
-    member = _adversarial_keys(rng, 4096)
-    nw, k = ref_filters.filter_params(len(member), 10)
-    lo, hi = ref_filters.split_hash(member)
-    bits = ref_filters.build_filter_np(lo, hi, nw, k)
-    qlo, qhi = ref_filters.split_hash(_queries(rng, member))
-    args = (_t32(qlo), _t32(qhi), _t32(bits))
-    got = kernel.bloom_probe(*(a.to(card) for a in args), k)
-    assert torch.equal(got.cpu(), ref.bloom_probe_ref(*args, k))
-    for case in ("several_slots_mixed_k", "k1_and_k16", "one_word",
-                 "no_pairs"):
-        args = _slot_tensors(_slot_case(rng, *SLOT_CASES[case]))
-        got = kernel.bloom_probe_pairs(*(a.to(card) for a in args))
-        assert torch.equal(got.cpu(), ref.bloom_probe_pairs_ref(*args))

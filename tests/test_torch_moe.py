@@ -144,6 +144,59 @@ def test_moe_matches_reference(arch, top_k, dtype, monkeypatch):
         _close(got, want, TOL[dtype])
 
 
+@pytest.mark.parametrize("case", ["zero_input", "equal_columns"])
+def test_moe_tied_gates_match_reference(case, monkeypatch):
+    """Tied gates take the lower expert first, as ``jax.lax.top_k`` does:
+    OLMoE's 64 experts top-8 (smoke widths, fp32, capacity factor 1) on
+    a zero router input (64 equal gates: experts 0-7 for every token, so
+    most pairs drop), and on a router whose columns 3 and 5 are equal and
+    large (the two tie inside every token's top 8).  Experts, kept slots
+    and output as the reference's."""
+    ref_cfg = dataclasses.replace(ref_get_config("olmoe-1b-7b").smoke(),
+                                  num_experts=64, top_k=8,
+                                  capacity_factor=1.0)
+    params = jax.tree.map(lambda a: np.asarray(a, np.float32),
+                          init_params(jax.random.PRNGKey(0), ref_cfg))
+    p = jax.tree.map(lambda a: np.array(a[0]), params["layers"]["moe"])
+    x = _x((2, 16, ref_cfg.d_model), "float32", 4)
+    if case == "zero_input":
+        x = np.zeros_like(x)
+    else:
+        x = 1.0 + 0.1 * x
+        p["router"][:, 3] = p["router"][:, 5] = 1.0
+    seen = []
+    top_k = jax.lax.top_k
+
+    def record(operand, k):
+        out = top_k(operand, k)
+        seen.append(out)
+        return out
+    monkeypatch.setattr(jax.lax, "top_k", record)
+    want = RL.moe(jax.tree.map(jnp.asarray, p), ref_cfg, jnp.asarray(x))
+    monkeypatch.undo()
+    (_, ref_e), = seen
+    ref_e = np.asarray(ref_e)
+    tcfg = dataclasses.replace(get_config("olmoe-1b-7b").smoke(),
+                               num_experts=64, top_k=8, capacity_factor=1.0)
+    layer = from_reference(tcfg, params, device="cpu").layers[0].moe
+    tx = torch.from_numpy(x)
+    with torch.no_grad():
+        layer.router.copy_(torch.from_numpy(p["router"]))
+        _, top_e = L.moe_route(layer, tcfg, tx)
+        got = L.moe(layer, tcfg, tx)
+    if case == "zero_input":
+        assert (ref_e == np.arange(8)).all()
+    else:
+        assert ((ref_e == 3).any(-1) & (ref_e == 5).any(-1)).all()
+    np.testing.assert_array_equal(top_e.numpy(), ref_e)
+    cap = L.moe_capacity(tcfg, 16)
+    pos, keep = L.moe_slots(top_e, 64, cap)
+    want_pos, want_keep = _slots(ref_e, 64, cap)
+    np.testing.assert_array_equal(pos.numpy(), want_pos)
+    np.testing.assert_array_equal(keep.numpy(), want_keep)
+    _close(got, want, TOL["float32"])
+
+
 def test_moe_routes_topk():
     """tests/test_models.py::test_moe_routes_topk on the port (its own
     init, bf16): the output's shape, finite; each token's k experts

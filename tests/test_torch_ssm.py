@@ -10,8 +10,8 @@ Tolerances: the scans 1e-4 (``tests/test_kernels.py``: fp32, sums in
 another order); the layers 1e-4 with fp32 parameters and 2e-2 with bf16
 (bf16 products round at other places in the two frameworks).
 
-The CUDA kernels run only on the card: the ``gpu`` tests decide inside
-their fixture whether a card and ``nvcc`` are present, and skip here.
+The CUDA kernels run only on the card: ``tests/test_torch_gpu.py`` holds
+them against these plain versions there.
 """
 import numpy as np
 import pytest
@@ -30,7 +30,6 @@ from repro.kernels.selective_scan.ref import (  # noqa: E402
 from repro.models import init_params  # noqa: E402
 from repro.models import layers as RL  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.selective_scan import fused as fused_kernel  # noqa
 from repro_torch.kernels.selective_scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.selective_scan import (  # noqa: E402
@@ -339,51 +338,3 @@ def test_fp32_leaves_stay_fp32(falcon_smoke):
     np.testing.assert_allclose(_np(init_model(port_cfg, device="cpu")
                                    .layers[1].ssm.A_log),
                                np.asarray(ref["A_log"]), rtol=1e-7)
-
-
-# ----------------------------------------------------------------------
-# on the card: each kernel against its plain version
-# ----------------------------------------------------------------------
-@pytest.fixture
-def card():
-    """The CUDA device with the scan library built, or a skip with the
-    reason."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    try:
-        _build.nvcc_path()
-    except RuntimeError as err:
-        pytest.skip(str(err))
-    scan_kernel.load()
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,t,di,n", SHAPES + RAGGED + [(2, 1000, 3200, 16)])
-def test_scan_kernels_match_plain(card, b, t, di, n):
-    dt, bx, c, a = _torch(*_scan_inputs(8, b, t, di, n), dev=card)
-    got = scan_kernel.selective_scan(dt, bx, c, a)
-    np.testing.assert_allclose(_np(got), _np(selective_scan_ref(dt, bx, c,
-                                                                a)), **TOL)
-    dt, x, bm, c, a = _torch(*_fused_inputs(9, b, t, di, n), dev=card)
-    got = fused_kernel.selective_scan_fused(dt, x, bm, c, a)
-    want = selective_scan_fused_ref(dt, x, bm, c, a)
-    torch.cuda.synchronize()
-    np.testing.assert_allclose(_np(got), _np(want), **TOL)
-    np.testing.assert_allclose(
-        _np(got), _np(scan_kernel.selective_scan(dt, _bx(dt, x, bm), c, a)),
-        **TOL)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("lanes", [2, 4])
-@pytest.mark.parametrize("b,t,di,n,mode", EDGES + [(2, 65, 3000, 16,
-                                                     "model")])
-def test_fused_kernel_lanes_match_plain(card, lanes, b, t, di, n, mode):
-    dt, x, bm, c, a = _torch(*_edge_inputs(12, b, t, di, n, mode), dev=card)
-    y = torch.empty_like(dt)
-    fused_kernel.launch(fused_kernel.shape(b, di, lanes), dt, x, bm, c, a,
-                        y)
-    want = selective_scan_fused_ref(dt, x, bm, c, a)
-    torch.cuda.synchronize()
-    np.testing.assert_allclose(_np(y), _np(want), **TOL)

@@ -8,8 +8,8 @@ integer, a boolean or a float computed by the same simulator history, so
 every comparison here is exact: equality, and byte equality of the JSON
 rows.
 
-The card runs of the same comparison carry the ``gpu`` marker and decide
-inside their fixture whether a card and ``nvcc`` are present.
+The card run of the open-loop comparison, card against CPU, is in
+``tests/test_torch_gpu.py``.
 """
 import ast
 import dataclasses
@@ -31,8 +31,6 @@ from repro.zoned import faults as ref_faults  # noqa: E402
 from repro.zoned import sim as ref_sim  # noqa: E402
 import repro_torch.lsm as pt_lsm  # noqa: E402
 from repro_torch import workloads as pt_wl  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.bloom_probe import bloom_probe as kernel  # noqa: E402
 from repro_torch.lsm import filters  # noqa: E402
 from repro_torch.zoned import device as pt_device  # noqa: E402
 from repro_torch.zoned import faults as pt_faults  # noqa: E402
@@ -529,59 +527,27 @@ def _imports(path):
 
 
 def test_port_imports_neither_jax_nor_repro():
+    """The port, chip_smoke.py and the card's tests import neither JAX nor
+    the JAX package, nor ``benchmarks`` (whose linter imports ``repro``),
+    in their source or in a fresh interpreter."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"]
     assert len(files) > 20
+    banned = ("jax", "jaxlib", "repro", "benchmarks")
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), (path, name)
+            assert top not in banned, (path, name)
     code = ("import sys, repro_torch.workloads, repro_torch.lsm, "
             "repro_torch.serving, repro_torch.models, repro_torch.configs, "
             "repro_torch.data, repro_torch.optim, repro_torch.checkpoint, "
-            "repro_torch.ft, repro_torch.launch.train; "
-            "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
+            "repro_torch.ft, repro_torch.launch.train, repro_torch.obs, "
+            "repro_torch.cluster, repro_torch.workloads.sweep, "
+            "repro_torch.workloads.drift, repro_torch.workloads.serving; "
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {banned}]; "
+            "print(bad); assert not bad")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120,
                        env={"PYTHONPATH": str(ROOT / "src"),
                             "PATH": "/usr/bin:/bin"})
     assert r.returncode == 0, r.stdout + r.stderr
-
-
-# ----------------------------------------------------------------------
-@pytest.fixture
-def card():
-    """A CUDA card with ``nvcc``, or a skip with the reason."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    try:
-        _build.nvcc_path()
-    except RuntimeError as err:
-        pytest.skip(str(err))
-    return "cuda"
-
-
-@pytest.mark.gpu
-def test_cuda_store_matches_cpu_store(card):
-    """The same YCSB-C open-loop cell on the card and on the CPU: rows and
-    stats identical, and the card's batched reads went through the pairs
-    kernel, one launch a batch with a filtered pair plus the re-probes."""
-    rows, stats = [], []
-    kernel.reset_launches()
-    for dev in (card, "cpu"):
-        _, port, n = _loaded_pair("HHZS", torch_device=dev)
-        port.get(3)
-        res = pt_wl.run_open_loop(port, pt_wl.YCSB["C"],
-                                  pt_wl.PoissonArrivals(60.0), duration=40.0,
-                                  n_keys=n, warmup=5.0, read_batch=64, seed=3)
-        rows.append(_row(res))
-        stats.append(dict(port.tree.stats))
-        if dev == card:
-            launched = dict(kernel.launches)
-            port_calls = dict(port.tree.probe_calls)
-    assert rows[0] == rows[1] and stats[0] == stats[1]
-    assert launched["bloom_probe_pairs"] > 0
-    calls = port_calls["batch"] + port_calls["reprobe_epoch"] + \
-        port_calls["reprobe_mixed_k"] + 1         # + the per-key read
-    assert sum(launched.values()) <= calls

@@ -49,12 +49,7 @@ from repro_torch.checkpoint import ckpt  # noqa: E402
 from repro_torch.config import ParallelConfig, TrainConfig  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import pipeline  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention as flash_kernel)
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
-from repro_torch.kernels.selective_scan import (  # noqa: E402
-    fused as fused_kernel)
 from repro_torch.kernels.selective_scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.selective_scan.ref import (  # noqa: E402
     selective_scan_fused_ref, ssm_scan_chunked)
@@ -420,35 +415,6 @@ def test_model_layers_take_the_functions():
         flash_ops.flash_attention, scan_ops.selective_scan_fused = orig
     assert seen == ["FlashAttentionBackward",
                     "SelectiveScanFusedBackward"] * tcfg.num_layers
-
-
-@pytest.fixture
-def card():
-    """A CUDA card with ``nvcc``, or a skip with the reason."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    try:
-        _build.nvcc_path()
-    except RuntimeError as err:
-        pytest.skip(str(err))
-    return "cuda"
-
-
-@pytest.mark.gpu
-def test_kernel_wrappers_refuse_inputs_that_require_grad(card):
-    rng = np.random.default_rng(9)
-    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
-               .to(card) for s in ((1, 2, 16, 16), (1, 1, 16, 16),
-                                   (1, 1, 16, 16)))
-    with pytest.raises(RuntimeError, match="no backward"):
-        flash_kernel.flash_attention_fwd(q.requires_grad_(), k, v)
-    args = [torch.from_numpy(a).to(card)
-            for a in _scan_inputs(3, 1, 8, 32, 4)[0]]
-    with pytest.raises(RuntimeError, match="no backward"):
-        fused_kernel.selective_scan_fused(args[0].requires_grad_(),
-                                          *args[1:])
-    with torch.no_grad():
-        fused_kernel.selective_scan_fused(*args)
 
 
 # ----------------------------------------------------------------------
