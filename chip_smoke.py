@@ -123,8 +123,10 @@ nvcc per source, all started together, into ``build/repro_torch/``, then:
 13. training identity: Qwen3-1.7B (2 layers), Falcon-Mamba-7B (2) and
    Hymba-1.5B (3) at full width, fp32 from one seeded ``init_state``,
    TF32 off, SyntheticLM batch 2 x 256: one ``make_train_step`` step with
-   remat on at grad_accum 1 and 2 on the card and on the CPU, the launch
-   counts zeroed just before and read just after each: loss, grad norm
+   remat on at grad_accum 1 and 2 on the card, each against one step on
+   the CPU at grad_accum 1 (the same arithmetic, fp32 sums in another
+   order), the launch counts zeroed just before and read just after
+   each: loss, grad norm
    and lr within 1e-4 relative, every gradient (the first moment, 0.1 g
    times the clip scale) within 1e-4 of its largest, every parameter with
    a gradient on the CPU with one on the card, the new parameters bf16,
@@ -149,7 +151,7 @@ nvcc per source, all started together, into ``build/repro_torch/``, then:
    step and nothing else; seconds a step, tokens per second over steps
    2-6, peak memory; then one more step of the same state under the
    profiler's CUDA activity with the two Functions' backwards bracketed
-   by CUDA events (``BackwardSpans``): device time by operation, the
+   by CUDA events (``Spans``): device time by operation, the
    kernels' forwards, the plain attention backward, the chunked-scan
    backward and GEMMs, and the busy share (device time over the mean
    unprofiled step).  The flash and fused-scan rows of the ``kernels``
@@ -224,7 +226,28 @@ nvcc per source, all started together, into ``build/repro_torch/``, then:
    seconds: wall seconds, throughput, p99s and goodput, rebalance moves,
    Bloom launches (at least one pairs launch a cell), the probe stage's
    host seconds and each shard's resident image bytes.  The Bloom rows of
-   the ``kernels`` line count these paths' launches in ``by_path``.
+   the ``kernels`` line count these paths' launches in ``by_path``;
+18. the multi-device layer: one process joins a group of one rank
+   (gloo for CPU tensors, NCCL for the card's, an in-process store; no
+   fallback: a group that does not come up fails the script) and builds
+   ``make_local_mesh(1)``; the group is destroyed at the end.  18a:
+   OLMoE-1B-7B cut to 2 layers, fp32, TF32 off, ``make_prefill_step``
+   with the sequence-sharded constraint (every MoE layer through
+   ``moe_shard_map``) on 2 x 64 tokens at the default capacity factor
+   (pairs drop), on the card's mesh and on a CPU mesh of the same group:
+   experts, kept slots and drops identical, logits within 1e-4 of the
+   largest; at capacity factor 8 (no drop) the sharded prefill on the
+   card within 1e-4 of the plain one; one flash launch a layer, two
+   all-to-alls and four all-gathers a MoE layer.  18b: OLMoE-1B-7B at
+   full width and depth, bf16 random weights (seed 0) made on the card,
+   the sharded prefill on 4 x 2,048 over the (1, 1) NCCL mesh, counts
+   zeroed before and read after its first call: one flash launch a layer
+   on the tensor-core kernel, two all-to-alls a layer; reported: seconds
+   and tokens/s, pairs dropped against the pooled capacity, device time
+   by operation (the sharded MoE's dispatch, experts and combine
+   bracketed by CUDA events; NCCL; flash), the busy share, beside phase
+   16's unsharded prefill.  The flash row counts 18b's launches in
+   ``by_path``.
 
 TF32 is off for matmuls and cuDNN (the defaults for matmuls), so fp32
 products on the card are full fp32.  Each phase prints one JSON line; the
@@ -254,6 +277,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.checkpoint import ckpt  # noqa: E402
@@ -280,6 +304,7 @@ from repro_torch.kernels.selective_scan import (  # noqa: E402
 from repro_torch.kernels.selective_scan.ref import (  # noqa: E402
     selective_scan_fused_ref, selective_scan_ref)
 from repro_torch.core.middleware import AdmissionConfig  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.lsm import DB, SCALE, ScenarioConfig, filters  # noqa: E402
 from repro_torch.lsm.tree import LSMTree  # noqa: E402
@@ -290,8 +315,10 @@ from repro_torch.models import (encoder_kv, forward,  # noqa: E402
                                 state_shapes)
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import moe_sharded  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
+from repro_torch.sharding import activation_constraint  # noqa: E402
 from repro_torch.workloads import (YCSB, PoissonArrivals,  # noqa: E402
                                    ScenarioMatrix, ServingPool,
                                    ServingWorkload, TenantSpec,
@@ -325,7 +352,7 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
 # phase 7: the serving path at full size
 SERVE_REQUESTS = 24
 SERVE_NEW_TOKENS = 64
-ALL_PHASES = tuple(range(1, 18))
+ALL_PHASES = tuple(range(1, 19))
 
 
 def emit(**obj) -> None:
@@ -2372,11 +2399,12 @@ def ckpt_round_trip(cfg, state: dict, dev) -> dict:
 
 
 def phase_train_identity(card_dev: str = "cuda") -> dict:
-    """Phase 13: make_train_step on the card and on the CPU, fp32 from one
-    seeded init_model, remat on, at grad_accum 1 and 2 (each model's
-    record printed before its checks); the optimizer alone on both
-    devices; train_loop killed and resumed on the card, and a checkpoint
-    round trip of the state it ends with."""
+    """Phase 13: make_train_step on the card at grad_accum 1 and 2, each
+    held against one step on the CPU at grad_accum 1, fp32 from one
+    seeded init_model, remat on (each model's record printed before its
+    checks); the optimizer alone on both devices; train_loop killed and
+    resumed on the card, and a checkpoint round trip of the state it
+    ends with."""
     out = {}
     b1 = TRAIN_TC.beta1
     pending = []
@@ -2390,10 +2418,15 @@ def phase_train_identity(card_dev: str = "cuda") -> dict:
                             seed=13).batch_at(0)
         r = {"layers": layers, "batch": [TRAIN_BATCH, TRAIN_SEQ],
              "params": sum(p.numel() for p in base["model"].parameters())}
+        # one CPU oracle a model, the full batch in one micro-batch: both
+        # card runs are held against it (accumulating over micro-batches
+        # changes the order of fp32 sums only)
+        t0 = time.perf_counter()
+        cpu, cpu_rec = train_run(cfg, base, batch, 1, "cpu", False)
+        cpu_rec["run_s"] = time.perf_counter() - t0
+        cpu_rec["grad_accum"] = 1
+        r["cpu"] = cpu_rec
         for accum in (1, 2):
-            t0 = time.perf_counter()
-            cpu, cpu_rec = train_run(cfg, base, batch, accum, "cpu", False)
-            cpu_rec["run_s"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             card, card_rec = train_run(cfg, base, batch, accum, card_dev,
                                        accum == 1)
@@ -2414,7 +2447,7 @@ def phase_train_identity(card_dev: str = "cuda") -> dict:
                                   for n in cpu["mu"]])
             masters = max(rel_err(card["master"][n], cpu["master"][n])
                           for n in cpu["master"])
-            rec = {"cpu": cpu_rec, "card": card_rec, "metrics_rel_err": rel,
+            rec = {"card": card_rec, "metrics_rel_err": rel,
                    "moments_rel_err": moments,
                    "moments_worst": [
                        {"tensor": f"{f}:{n}", "rel_err": e,
@@ -2450,16 +2483,17 @@ def phase_train_identity(card_dev: str = "cuda") -> dict:
             defer(card_rec["flash_variants"]["simt"]
                   == want["flash_attention"],
                   f"{tag}: fp32 flash on the CUDA-core kernel")
-            defer(not any(cpu_rec["launches"].values()),
-                  f"{tag}: the CPU run launched no kernel")
             if name == "hymba-1.5b" and accum == 1:
                 t0 = time.perf_counter()
                 r["adamw_identity"] = adamw_identity(
                     base, {n: t / (1 - b1) for n, t in cpu["mu"].items()},
                     card_dev)
                 r["adamw_identity"]["seconds"] = time.perf_counter() - t0
-            del card, cpu
+            del card
             torch.cuda.empty_cache()
+        defer(not any(cpu_rec["launches"].values()),
+              f"phase 13 {name}: the CPU run launched no kernel")
+        del cpu
         out[name] = r
         emit(phase13={name: r})             # before its checks
         for cond, what in pending:
@@ -2498,41 +2532,44 @@ def is_gemm(name: str) -> bool:
     return any(g in name.lower() for g in GEMM_KERNELS)
 
 
-class BackwardSpans:
-    """Wraps the backward of the two kernels' autograd Functions: CUDA
-    events recorded on the stream just before and just after each call,
-    so the device time each backward spans (every operation it launches,
-    any idle gap inside it included) sums per Function."""
+class Spans:
+    """Wraps functions, each an attribute of a module or a class (a
+    static method there): CUDA events recorded on the stream just before
+    and just after each call, so the device time each call spans (every
+    operation it launches, any idle gap inside it included) sums per
+    name."""
 
-    FUNCTIONS = {"flash_attention_backward": flash_ops.FlashAttention,
-                 "selective_scan_backward": scan_ops.SelectiveScanFused}
-
-    def __init__(self):
-        self.events = {name: [] for name in self.FUNCTIONS}
-        self._orig = {name: fn.backward for name, fn in
-                      self.FUNCTIONS.items()}
+    def __init__(self, targets: dict):
+        self.targets = targets
+        self.events = {name: [] for name in targets}
+        self._orig = {name: getattr(owner, attr)
+                      for name, (owner, attr) in targets.items()}
 
     def _wrap(self, name: str):
         orig = self._orig[name]
 
-        def backward(ctx, *grads):
+        def call(*args):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = orig(ctx, *grads)
+            out = orig(*args)
             end.record()
             self.events[name].append((start, end))
             return out
-        return staticmethod(backward)
+        return call
+
+    def _set(self, owner, attr: str, fn) -> None:
+        setattr(owner, attr, staticmethod(fn) if isinstance(owner, type)
+                else fn)
 
     def __enter__(self):
-        for name, fn in self.FUNCTIONS.items():
-            fn.backward = self._wrap(name)
+        for name, (owner, attr) in self.targets.items():
+            self._set(owner, attr, self._wrap(name))
         return self
 
     def __exit__(self, *exc):
-        for name, fn in self.FUNCTIONS.items():
-            fn.backward = staticmethod(self._orig[name])
+        for name, (owner, attr) in self.targets.items():
+            self._set(owner, attr, self._orig[name])
 
     def summary(self) -> dict:
         torch.cuda.synchronize()
@@ -2541,13 +2578,20 @@ class BackwardSpans:
                 for name, ev in self.events.items()}
 
 
+BACKWARDS = {"flash_attention_backward": (flash_ops.FlashAttention,
+                                          "backward"),
+             "selective_scan_backward": (scan_ops.SelectiveScanFused,
+                                         "backward")}
+
+
 def profiled_split(fn) -> dict:
     """``fn`` (one train step) under the profiler's CUDA activity and
-    ``BackwardSpans``: device time by operation, and split into the two
-    kernels' forward launches, the spans of the Functions' backwards (the
-    plain attention recompute, the chunked scan), all GEMMs (those inside
-    the backward spans included) and the rest outside the spans."""
-    with BackwardSpans() as spans:
+    ``Spans`` of the two Functions' backwards: device time by operation,
+    and split into the two kernels' forward launches, the spans of the
+    Functions' backwards (the plain attention recompute, the chunked
+    scan), all GEMMs (those inside the backward spans included) and the
+    rest outside the spans."""
+    with Spans(BACKWARDS) as spans:
         ops = device_ops(fn)
     back = spans.summary()
     total = sum(ms for _, ms, _ in ops)
@@ -3643,6 +3687,253 @@ def merge_store_paths(kernels: list, paths: dict) -> None:
             row["launches"] += launched[name]
 
 
+# ----------------------------------------------------------------------
+# phase 18: the multi-device layer, OLMoE's prefill through the sharded MoE
+# ----------------------------------------------------------------------
+MESH_IDENTITY = ("olmoe-1b-7b", 2, 2, 64)   # model, layers, prompts, tokens
+MESH_MAIN = ("olmoe-1b-7b", None, 4, 2048)
+NO_DROP_FACTOR = 8.0          # no pair drops at 2 x 64 tokens and E / k
+MESH_TOL = 1e-4
+
+
+def init_group() -> None:
+    """One rank: gloo for CPU tensors, NCCL for the card's, over an
+    in-process store.  A group that does not come up raises."""
+    dist.init_process_group(backend="cpu:gloo,cuda:nccl",
+                            store=dist.HashStore(), rank=0, world_size=1)
+
+
+def sharded_prefill(cfg, mesh):
+    """``make_prefill_step`` with the sequence-sharded constraint on
+    ``mesh``: every MoE layer through ``moe_shard_map``."""
+    return make_prefill_step(cfg, ParallelConfig(seq_shard_activations=True),
+                             activation_constraint(mesh, seq_shard=True))
+
+
+def mesh_run(model, batch: dict, step, dev) -> dict:
+    """One prefill of ``step`` on ``dev``, the counts zeroed just before
+    and read just after: logits, the MoE's experts and kept slots of every
+    call, kernel launches and collectives."""
+    tb = to_dev(batch, dev)
+    reset_model_launches()
+    moe_sharded.reset_launches()
+    with ModelRecorder(routes=True) as rec:
+        logits = step(model, tb)
+        sync(dev)
+    return {"logits": logits.float().cpu(), "experts": rec.experts,
+            "kept": rec.kept, "kinds": dict(rec.kinds),
+            "launches": model_launches(),
+            "variants": dict(flash_kernel.variant_launches),
+            "collectives": dict(moe_sharded.launches),
+            "dropped": sum(int((~k).sum()) for k in rec.kept)}
+
+
+def phase_mesh_identity(card_dev: str = "cuda") -> dict:
+    """Phase 18a: OLMoE-1B-7B at full width cut to 2 layers, fp32 (weights
+    drawn on the card, copied to the CPU), TF32 off.  The sharded prefill
+    at the default capacity factor (pairs drop) on the card's mesh and on
+    a CPU mesh of the same group: routes, kept slots and drops identical,
+    logits within MESH_TOL; at NO_DROP_FACTOR the sharded prefill on the
+    card against the plain one on the card.  Launches by kind: one flash
+    a layer (CUDA-core: fp32), two all-to-alls and four all-gathers a MoE
+    layer, none of them on the plain path."""
+    name, layers, b, t = MESH_IDENTITY
+    cfg = family_cfg(name, layers)
+    t0 = time.perf_counter()
+    card_model = init_model(cfg, seed=0, device=card_dev,
+                            dtype=torch.float32)
+    cpu_model = copy.deepcopy(card_model).to("cpu")
+    init_s = time.perf_counter() - t0
+    meshes = {card_dev: make_local_mesh(1, torch.device(card_dev).type),
+              "cpu": make_local_mesh(1, "cpu")}
+    batch = family_batch(cfg, b, t, 15)
+    runs = {dev: mesh_run(model, batch, sharded_prefill(cfg, meshes[dev]),
+                          dev)
+            for dev, model in ((card_dev, card_model), ("cpu", cpu_model))}
+    nd = dataclasses.replace(cfg, capacity_factor=NO_DROP_FACTOR)
+    sharded = mesh_run(card_model, batch,
+                       sharded_prefill(nd, meshes[card_dev]), card_dev)
+    plain = mesh_run(card_model, batch, make_prefill_step(nd), card_dev)
+    card, cpu = runs[card_dev], runs["cpu"]
+    n = cfg.num_layers
+    want_coll = {"all_gather": 4 * n, "all_to_all": 2 * n,
+                 "reduce_scatter": 0}
+    r = {"model": cfg.name, "layers": n, "prefill_tokens": [b, t],
+         "mesh": list(meshes[card_dev].shape), "init_s": init_s,
+         "capacity": [cfg.capacity_factor, max(int(
+             cfg.capacity_factor * b * t * cfg.top_k / cfg.num_experts), 1)],
+         "card_vs_cpu_rel_err": rel_err(card["logits"], cpu["logits"]),
+         "moe_calls": len(card["experts"]),
+         "experts_identical": len(card["experts"]) == len(cpu["experts"])
+         and all(torch.equal(a, c) for a, c in zip(card["experts"],
+                                                   cpu["experts"])),
+         "kept_identical": len(card["kept"]) == len(cpu["kept"])
+         and all(torch.equal(a, c) for a, c in zip(card["kept"],
+                                                   cpu["kept"])),
+         "dropped_pairs": {"card": card["dropped"], "cpu": cpu["dropped"]},
+         "launches": {"card": card["launches"], "cpu": cpu["launches"]},
+         "flash_kinds": card["kinds"], "flash_variants": card["variants"],
+         "collectives": {"card": card["collectives"],
+                         "cpu": cpu["collectives"]},
+         "no_drop": {"capacity_factor": NO_DROP_FACTOR,
+                     "sharded_vs_plain_rel_err": rel_err(sharded["logits"],
+                                                         plain["logits"]),
+                     "dropped_pairs": {"sharded": sharded["dropped"],
+                                       "plain": plain["dropped"]},
+                     "collectives": {"sharded": sharded["collectives"],
+                                     "plain": plain["collectives"]}}}
+    emit(phase18a=r)                      # before its checks
+    tag = "phase 18a"
+    check(r["card_vs_cpu_rel_err"] <= MESH_TOL,
+          f"{tag}: sharded prefill logits on the card within 1e-4 of the "
+          "CPU mesh's")
+    check(r["experts_identical"] and r["kept_identical"]
+          and r["moe_calls"] == n and card["dropped"] == cpu["dropped"] > 0,
+          f"{tag}: every MoE call's experts, kept slots and drops "
+          "identical on the card and the CPU, pairs dropped")
+    check(card["kinds"]["self"] == n and card["launches"]["flash_attention"]
+          == n and sum(card["launches"].values()) == n
+          and card["variants"] == {"mma": 0, "simt": n},
+          f"{tag}: one flash launch a layer (fp32: CUDA-core), nothing "
+          "else")
+    check(not any(cpu["launches"].values()),
+          f"{tag}: the CPU run launched no kernel")
+    check(card["collectives"] == cpu["collectives"] == want_coll
+          and sharded["collectives"] == want_coll,
+          f"{tag}: two all-to-alls and four all-gathers a MoE layer")
+    check(not any(plain["collectives"].values()),
+          f"{tag}: the plain prefill made no collective call")
+    check(r["no_drop"]["sharded_vs_plain_rel_err"] <= MESH_TOL
+          and sharded["dropped"] == plain["dropped"] == 0,
+          f"{tag}: at capacity factor {NO_DROP_FACTOR} no pair dropped and "
+          "the sharded prefill within 1e-4 of the plain one on the card")
+    del card_model, cpu_model
+    torch.cuda.empty_cache()
+    return r
+
+
+MOE_SPANS = {"dispatch": (moe_sharded, "_topk_dispatch"),
+             "experts": (moe_sharded, "_experts"),
+             "combine": (moe_sharded, "_combine"),
+             "all_gather": (moe_sharded, "_all_gather"),
+             "all_to_all": (moe_sharded, "_all_to_all")}
+
+
+def phase_mesh_main(dev: str = "cuda", unsharded: dict = None) -> dict:
+    """Phase 18b: OLMoE-1B-7B at full width and depth, bf16 random weights
+    (seed 0) made on the card, ``make_prefill_step`` through the sharded
+    MoE on the (1, 1) NCCL mesh, 4 prompts of 2,048: the first call with
+    the counts zeroed before and read after (one flash a layer on the
+    tensor-core kernel, two all-to-alls a MoE layer, pairs dropped), a
+    second timed, a third under the profiler with the sharded MoE's
+    dispatch, experts, combine and collectives bracketed by CUDA events
+    (``Spans``; NCCL on a group of one rank copies with the copy engine
+    and launches no kernel of its own): device time by operation,
+    flash's, the busy share; beside phase 16's unsharded prefill of the
+    same model when it ran."""
+    name, layers, b, t = MESH_MAIN
+    cfg = family_cfg(name, layers)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    mesh = make_local_mesh(1, "cuda")
+    step = sharded_prefill(cfg, mesh)
+    batch = to_dev(family_batch(cfg, b, t, 16), dev, L.DTYPE)
+    torch.cuda.reset_peak_memory_stats()
+    reset_model_launches()
+    moe_sharded.reset_launches()
+    with ModelRecorder() as rec:
+        t0 = time.perf_counter()
+        logits = step(model, batch)
+        nonfinite = int((~torch.isfinite(logits)).sum())
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        dropped, pairs = int(rec.dropped), rec.pairs
+        kinds = dict(rec.kinds)
+    launched, variants = model_launches(), dict(flash_kernel.variant_launches)
+    collectives = dict(moe_sharded.launches)
+    t0 = time.perf_counter()
+    step(model, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    with Spans(MOE_SPANS) as spans:
+        ops = device_ops(lambda: step(model, batch))
+    split = spans.summary()
+    device = sum(ms for _, ms, _ in ops)
+
+    def part(hits) -> dict:
+        ms = sum(ms for _, ms, _ in hits)
+        return {"device_ms": ms, "launches": sum(n for _, _, n in hits),
+                "share": ms / device}
+    for v in split.values():
+        v["share"] = v["device_ms"] / device
+    e, k = cfg.num_experts, cfg.top_k
+    out = {"model": cfg.name, "layers": cfg.num_layers,
+           "params": sum(p.numel() for p in model.parameters()),
+           "mesh": list(mesh.shape), "batch": [b, t], "load_s": load_s,
+           "first_prefill_s": first_s, "prefill_s": prefill_s,
+           "tokens_per_s": b * t / prefill_s,
+           "capacity_per_expert": max(int(cfg.capacity_factor * b * t * k
+                                          / e), 1),
+           "moe_pairs": pairs, "dropped_pairs": dropped,
+           "dropped_share": dropped / pairs if pairs else 0.0,
+           "launches": launched, "flash_variants": variants,
+           "flash_kinds": kinds, "collectives": collectives,
+           "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "prefill_device_ms": device,
+           "busy_share": device / (1e3 * prefill_s),
+           "moe_spans": split,
+           "nccl_kernels": part([o for o in ops if "nccl" in o[0].lower()]),
+           "device_copies": part([o for o in ops if "Memcpy DtoD" in o[0]]),
+           "flash": part([o for o in ops if "flash_fwd" in o[0]]),
+           "gemms_all": part([o for o in ops if is_gemm(o[0])]),
+           "top_ops": [{"op": key[:120], "device_ms": ms, "count": n,
+                        "share": ms / device}
+                       for key, ms, n in ops[:TOP_OPS]],
+           "nonfinite_logits": nonfinite}
+    if unsharded is not None:
+        out["phase16_unsharded"] = {
+            key: unsharded[key] if key in unsharded
+            else unsharded["prefill"][key]
+            for key in ("prefill_device_ms", "prefill_busy_share",
+                        "seconds", "tokens_per_s", "dropped_share")}
+    emit(phase18b=out)                    # before its checks
+    tag = "phase 18b"
+    n = cfg.num_layers
+    check(kinds["self"] == n and launched["flash_attention"] == n
+          and sum(launched.values()) == n and variants == {"mma": n,
+                                                           "simt": 0},
+          f"{tag}: one flash launch a layer on the tensor-core kernel, "
+          "nothing else")
+    check(collectives["all_to_all"] == 2 * n,
+          f"{tag}: two all-to-alls a MoE layer")
+    check(nonfinite == 0 and logits.shape == (b, cfg.vocab_size),
+          f"{tag}: finite next-token logits for every prompt")
+    check(split["experts"]["calls"] == n
+          and split["all_to_all"]["calls"] == 2 * n,
+          f"{tag}: the profiled prefill ran the experts and two "
+          "all-to-alls on every layer")
+    del model, batch, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def merge_mesh(kernels: list, out: dict) -> None:
+    """Count phase 18b's flash launches in the flash row's ``launches``,
+    ``launches_by_variant`` and ``by_path``.  No-op without the row."""
+    for row in kernels:
+        if row["name"] != "flash_attention":
+            continue
+        n = out["launches"]["flash_attention"]
+        row.setdefault("by_path", {})[
+            "OLMoE prefill through the sharded MoE (phase 18)"] = n
+        row["launches"] += n
+        for kind, k in out["flash_variants"].items():
+            row["launches_by_variant"][kind] += k
+
+
 def timings(card: str, kernels: list) -> dict:
     return {"card": card, "kernels": [
         {k: v for k, v in d.items() if k in (
@@ -3659,7 +3950,7 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
                     help="comma-separated phases to run (4 needs 3, 8 "
                          "needs 7, 12 needs 11); the result lines print "
-                         "only when all seventeen run")
+                         "only when all eighteen run")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
     for later, first in ((4, 3), (8, 7), (12, 11)):
         if later in phases and first not in phases:
@@ -3763,8 +4054,9 @@ def main() -> int:
     if 15 in phases:
         phase_family_identity()
         emit(phase15_seconds=seconds(), card=card)
+    family_out = {}
     if 16 in phases:
-        family_out, family_calls = {}, {}
+        family_calls = {}
         for spec in FAMILY_MAIN:
             family_out[spec[0]], family_calls[spec[0]] = \
                 phase_family_main(*spec)
@@ -3786,6 +4078,17 @@ def main() -> int:
                 cells["control"]["launches"],
             "bench_sharding skew, rebalanced (phase 17)":
                 cells["sharding"]["launches"]})
+    if 18 in phases:
+        init_group()
+        try:
+            phase_mesh_identity()
+            emit(phase18a_seconds=seconds(), card=card)
+            mesh_main = phase_mesh_main(
+                unsharded=family_out.get("olmoe-1b-7b"))
+            emit(phase18b_seconds=seconds(), card=card)
+        finally:
+            dist.destroy_process_group()
+        merge_mesh(kernels, mesh_main)
     if phases != set(ALL_PHASES):
         return 0
     emit(kernels=kernels)

@@ -1,2 +1,3 @@
-"""The port's training driver (``train.train_loop``); the mesh, the
-dry-run and the sharding specs come with the multi-device slice."""
+"""The port's launch layer: the training loop (``train.train_loop``),
+device meshes over a process group (``mesh``) and shape stand-ins of
+every step's inputs on the meta device (``specs``)."""

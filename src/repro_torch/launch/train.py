@@ -2,10 +2,13 @@
 
 Wires: config -> synthetic data (deterministic resume) -> the train step
 on the device -> periodic checkpoints -> supervisor restart loop, as the
-reference's ``launch/train.py``; with no mesh (the port runs on one
+reference's ``launch/train.py``; with no mesh (the loop runs on one
 card: ``model_parallel`` must be 1, and ``fsdp`` and
 ``seq_shard_activations`` change nothing on one device, as on the
-reference's one-device mesh).
+reference's one-device mesh).  The meshes are ``launch/mesh.py``'s and
+the parameter and state specs ``sharding.py``'s; the loop takes them
+when it trains on DTensor state under ``sharding.state_specs``, the
+next slice of the port.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \\
       --steps 6 --batch 4 --seq 2048
@@ -50,9 +53,10 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int,
                resume: bool = True, fail_at: Optional[int] = None,
                seed: int = 0, log=print, device="cuda") -> Dict:
     if model_parallel != 1:
-        raise ValueError(f"model_parallel={model_parallel}: the port trains "
-                         "on one device; sharding comes with the "
-                         "multi-device slice")
+        raise ValueError(f"model_parallel={model_parallel}: train_loop "
+                         "runs on one device; training on DTensor state "
+                         "under sharding.state_specs comes with the slice "
+                         "after the mesh and sharding rules")
     tc = tc or TrainConfig(total_steps=steps)
     parallel = parallel or ParallelConfig(seq_shard_activations=False)
     device = torch.device(device)

@@ -261,7 +261,8 @@ def moe_slots(top_e: torch.Tensor, num_experts: int, cap: int
     return pos, pos < cap
 
 
-def moe(p: MoE, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def moe(p: MoE, cfg: ModelConfig, x: torch.Tensor,
+        constraint=None) -> torch.Tensor:
     """Top-k MoE with dispatch into per-expert buffers of ``moe_capacity``
     slots a batch row (overflow drops), the experts as three batched
     products over [B, E, C, d] and the combine in x's dtype: x [B, S, d]
@@ -271,7 +272,10 @@ def moe(p: MoE, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     row one after another, in x's dtype, as the reference's scatter-add
     does: a sum of the k rounded once in fp32 differs in bf16's last bit.
     A dropped pair reads its expert's last slot and is zeroed, as there.
-    Nothing in it waits for the card.
+    Nothing in it waits for the card.  ``constraint``
+    (``sharding.activation_constraint``) is applied to the dispatch
+    buffer, the expert hidden and the expert outputs, as the reference
+    applies it; on local tensors it changes nothing.
     """
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
@@ -284,9 +288,15 @@ def moe(p: MoE, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     # dropped pairs land in a spare slot past the last, cut off after
     buf = x.new_zeros((b, e, cap + 1, d)).index_put(
         (rows, flat_e, torch.where(keep, pos, cap)), x[:, tok])[:, :, :cap]
+    if constraint is not None:
+        buf = constraint(buf, "moe_buf")
     h = silu(torch.einsum("becd,edf->becf", buf, p.we_gate)) \
         * torch.einsum("becd,edf->becf", buf, p.we_up)
+    if constraint is not None:
+        h = constraint(h, "moe_h")
     out_buf = torch.einsum("becf,efd->becd", h, p.we_down)
+    if constraint is not None:
+        out_buf = constraint(out_buf, "moe_buf")
     gathered = out_buf[rows, flat_e, torch.clamp(pos, max=cap - 1)]
     gathered = torch.where(keep[..., None], gathered,
                            gathered.new_zeros(()))

@@ -10,9 +10,10 @@ from a ``torch.Generator`` on the given device, in bf16 like the
 reference, with Mamba's ``A_log`` and ``D`` and the MoE router in fp32.
 
 Entry points, as in the reference:
-  forward(cfg, model, batch, remat)            -> logits  (train, prefill)
+  forward(cfg, model, batch, remat, constraint) -> logits (train, prefill)
   decode_step(cfg, model, token, len, caches)  -> logits, caches
   init_caches(cfg, batch, max_len)             -> dense decode caches
+  param_shapes(cfg)                            -> the model on ``meta``
   _encode(cfg, model, frames), encoder_kv(...) -> encdec's cross K/V
 A batch holds ``tokens``, and ``frames`` [B, encoder_seq, d] for encdec
 (the stubbed audio frontend's output) or ``vision_embeds`` [B,
@@ -119,6 +120,13 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
     return model
 
 
+def param_shapes(cfg: ModelConfig) -> Model:
+    """A model's structure, shapes and dtypes on the meta device, without
+    allocation (for the dry run and ``launch.specs``): bf16 parameters,
+    fp32 ``A_log``, ``D`` and router."""
+    return Model(cfg, device="meta")
+
+
 def lm_head(cfg: ModelConfig, model: Model) -> torch.Tensor:
     return model.embed.T if cfg.tie_embeddings else model.lm_head
 
@@ -166,8 +174,8 @@ def embed_inputs(cfg: ModelConfig, model: Model,
 
 def _block(cfg: ModelConfig, x: torch.Tensor, layer: DecoderLayer,
            positions: torch.Tensor, window: Optional[int],
-           enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-           ) -> torch.Tensor:
+           enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+           constraint=None) -> torch.Tensor:
     eps = cfg.norm_eps
     if cfg.family == "ssm":
         x = x + L.mamba(layer.ssm, cfg, L.rms_norm(x, layer.ssm_norm, eps))
@@ -183,19 +191,44 @@ def _block(cfg: ModelConfig, x: torch.Tensor, layer: DecoderLayer,
     if enc_kv is not None:
         h = L.rms_norm(x, layer.cross_norm, eps)
         x = x + L.cross_attention(layer.cross_attn, cfg, h, enc_kv)
-    return _ffn(cfg, x, layer)
+    return _ffn(cfg, x, layer, constraint)
 
 
-def _ffn(cfg: ModelConfig, x: torch.Tensor,
-         layer: DecoderLayer) -> torch.Tensor:
+def _ffn(cfg: ModelConfig, x: torch.Tensor, layer: DecoderLayer,
+         constraint=None) -> torch.Tensor:
     """The layer's MoE or MLP on its normed input, added to x."""
     if cfg.is_moe:
-        return x + L.moe(layer.moe, cfg, L.rms_norm(x, layer.mlp_norm,
-                                                    cfg.norm_eps))
+        return x + _moe_dispatch(cfg, layer.moe, L.rms_norm(
+            x, layer.mlp_norm, cfg.norm_eps), constraint)
     if cfg.d_ff > 0:
         return x + L.mlp(layer.mlp, cfg, L.rms_norm(x, layer.mlp_norm,
                                                     cfg.norm_eps))
     return x
+
+
+def _moe_dispatch(cfg: ModelConfig, p: L.MoE, h: torch.Tensor,
+                  constraint) -> torch.Tensor:
+    """The sharded MoE (``moe_sharded.moe_shard_map``) when ``constraint``
+    carries a mesh with sequence-sharded activations and the shapes
+    divide it, as the reference picks it; else ``layers.moe``.  A local
+    ``h`` (the model around it runs replicated on every rank) enters as
+    a DTensor, each rank taking its own slice with no exchange, and
+    leaves whole through ``full_tensor``."""
+    mesh = getattr(constraint, "mesh", None)
+    if mesh is not None and getattr(constraint, "seq_shard", False):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        from ..sharding import _axis_size
+        from .moe_sharded import moe_shard_map
+        ep = _axis_size(mesh, "model")
+        b, s, _ = h.shape
+        if s % ep == 0 and b % _axis_size(mesh, constraint.dp) == 0 \
+                and (cfg.num_experts % ep == 0 or cfg.d_ff % ep == 0):
+            hd = DTensor.from_local(h, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+            return moe_shard_map(p, cfg, hd, mesh,
+                                 constraint.dp).full_tensor()
+    return L.moe(p, cfg, h, constraint=constraint)
 
 
 def _layer(fn, remat: bool, *args) -> torch.Tensor:
@@ -248,7 +281,8 @@ def encoder_kv(cfg: ModelConfig, model: Model, enc_out: torch.Tensor
 
 
 def forward(cfg: ModelConfig, model: Model, batch: Dict,
-            remat: bool = True, return_hidden: bool = False) -> torch.Tensor:
+            remat: bool = True, constraint=None,
+            return_hidden: bool = False) -> torch.Tensor:
     """Training / prefill forward -> logits [B, S, V] (or the
     final-normed hidden states [B, S, d] when ``return_hidden``).  With
     ``remat`` and grad mode on, each layer runs under
@@ -256,7 +290,9 @@ def forward(cfg: ModelConfig, model: Model, batch: Dict,
     scanned layer): only the layer inputs are kept, and the backward runs
     each layer's forward again, its kernels included.  An encdec model
     first encodes ``batch["frames"]``; its decoder layers attend to their
-    cross K/V of it and have no window."""
+    cross K/V of it and have no window.  ``constraint``
+    (``sharding.activation_constraint``) is applied to each layer's
+    output and reaches the MoE (``_moe_dispatch``)."""
     check_family(cfg)
     x = embed_inputs(cfg, model, batch)
     b, s, _ = x.shape
@@ -265,12 +301,15 @@ def forward(cfg: ModelConfig, model: Model, batch: Dict,
     if cfg.encoder_layers:
         ek, ev = encoder_kv(cfg, model, _encode(cfg, model, batch["frames"],
                                                 remat))
-        for li, layer in enumerate(model.layers):
-            x = _layer(_block, remat, cfg, x, layer, positions, None,
-                       (ek[li], ev[li]))
+        kvs = [(ek[li], ev[li]) for li in range(cfg.num_layers)]
+        windows = [None] * cfg.num_layers
     else:
-        for layer, window in zip(model.layers, _windows(cfg)):
-            x = _layer(_block, remat, cfg, x, layer, positions, window)
+        kvs, windows = [None] * cfg.num_layers, _windows(cfg)
+    for layer, window, kv in zip(model.layers, windows, kvs):
+        x = _layer(_block, remat, cfg, x, layer, positions, window, kv,
+                   constraint)
+        if constraint is not None:
+            x = constraint(x)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     if return_hidden:
         return x

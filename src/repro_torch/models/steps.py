@@ -15,7 +15,7 @@ decode step against dense caches with a greedy next token.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -46,13 +46,15 @@ def _chunk_loss(h: torch.Tensor, head: torch.Tensor,
     return torch.sum(logz - gold)
 
 
-def make_loss_fn(cfg: ModelConfig, parallel: ParallelConfig):
+def make_loss_fn(cfg: ModelConfig, parallel: ParallelConfig,
+                 constraint=None):
     """Next-token CE with the vocab projection chunked over the sequence,
     each chunk under ``torch.utils.checkpoint``: the full [B, S, V] fp32
-    logits never exist, in the forward or the backward."""
+    logits never exist, in the forward or the backward.  ``constraint``
+    (``sharding.activation_constraint``) goes to ``forward``."""
     def loss_fn(model: M.Model, batch: Dict) -> torch.Tensor:
         hidden = M.forward(cfg, model, batch, remat=parallel.remat,
-                           return_hidden=True)
+                           constraint=constraint, return_hidden=True)
         head = M.lm_head(cfg, model)
         targets = batch["targets"]
         b, s, _ = hidden.shape
@@ -67,8 +69,8 @@ def make_loss_fn(cfg: ModelConfig, parallel: ParallelConfig):
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig,
-                    parallel: ParallelConfig):
-    loss_fn = make_loss_fn(cfg, parallel)
+                    parallel: ParallelConfig, constraint=None):
+    loss_fn = make_loss_fn(cfg, parallel, constraint)
 
     def train_step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
         """batch: ``tokens``/``targets`` int [B, S] on the model's device
@@ -114,14 +116,19 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig,
+                      parallel: Optional[ParallelConfig] = None,
+                      constraint=None):
+    """``parallel`` is taken for the reference's signature: the prefill
+    runs with remat off whatever it says.  With ``constraint`` carrying a
+    mesh and ``seq_shard``, the MoE layers run sharded over it."""
     @torch.no_grad()
     def prefill_step(model: M.Model, batch: Dict) -> torch.Tensor:
         """batch["tokens"] [B, S] (with ``frames`` or ``vision_embeds``
         as ``forward`` takes them) -> next-token logits [B, V]."""
         # inference forward: remat off (no backward pass to feed)
         hidden = M.forward(cfg, model, batch, remat=False,
-                           return_hidden=True)
+                           constraint=constraint, return_hidden=True)
         return L.matmul(hidden[:, -1, :], M.lm_head(cfg, model))
     return prefill_step
 
@@ -150,5 +157,5 @@ def state_shapes(cfg: ModelConfig) -> Dict:
     """A fresh state's structure, shapes and dtypes on the meta device
     (bf16 parameters, fp32 ``A_log`` and ``D``, fp32 optimizer leaves, an
     int32 step): what ``checkpoint.restore`` casts each leaf to."""
-    model = M.Model(cfg, device="meta")
+    model = M.param_shapes(cfg)
     return {"model": model, "opt": adamw.init(dict(model.named_parameters()))}

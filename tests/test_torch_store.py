@@ -531,7 +531,8 @@ def test_port_imports_neither_jax_nor_repro():
     the JAX package, nor ``benchmarks`` (whose linter imports ``repro``),
     in their source or in a fresh interpreter."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py",
+              ROOT / "tests" / "torch_dist_ranks.py"]
     assert len(files) > 20
     banned = ("jax", "jaxlib", "repro", "benchmarks")
     for path in files:
@@ -543,7 +544,9 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.data, repro_torch.optim, repro_torch.checkpoint, "
             "repro_torch.ft, repro_torch.launch.train, repro_torch.obs, "
             "repro_torch.cluster, repro_torch.workloads.sweep, "
-            "repro_torch.workloads.drift, repro_torch.workloads.serving; "
+            "repro_torch.workloads.drift, repro_torch.workloads.serving, "
+            "repro_torch.sharding, repro_torch.launch.mesh, "
+            "repro_torch.launch.specs, repro_torch.models.moe_sharded; "
             f"bad = [m for m in sys.modules if m.split('.')[0] in {banned}]; "
             "print(bad); assert not bad")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
