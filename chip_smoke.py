@@ -247,7 +247,24 @@ nvcc per source, all started together, into ``build/repro_torch/``, then:
    by operation (the sharded MoE's dispatch, experts and combine
    bracketed by CUDA events; NCCL; flash), the busy share, beside phase
    16's unsharded prefill.  The flash row counts 18b's launches in
-   ``by_path``.
+   ``by_path``;
+19. training on DTensor state and the dry run.  19a: ``train_loop`` at
+   Qwen3-1.7B's full width and depth (bf16, random weights from seed 0,
+   phase 13's 2 x 256 batch, 3 steps), first with no process group (one
+   device), then over the (1, 1) mesh of a one-rank NCCL group (the state
+   initialised under ``state_specs``, each batch placed under the batch
+   specs): every step's loss, grad norm and lr within 1e-4, moments and
+   masters within 1e-4 of each tensor's largest, parameters within one
+   bf16 step; each loop's flash launches counted (two a layer a step, on
+   the tensor-core kernel); step time, tokens/s, peak memory and the busy
+   share of one more profiled step.  Both loops again at the smoke config
+   saving their last step: the two checkpoints byte-identical, each
+   restored in the other's layout leaf for leaf (a checkpoint of the whole
+   1.7B state is 27 GB of npz).  The group is destroyed at the end.  19b:
+   the dry run's cell Qwen3-1.7B x train_4k on the 16 x 16 production
+   mesh of a fake group of 256 ranks (``launch/dryrun.py``, fake tensors
+   on the host): its roofline record.  The flash row counts 19a's sharded
+   loop's launches in ``by_path``.
 
 TF32 is off for matmuls and cuDNN (the defaults for matmuls), so fp32
 products on the card are full fp32.  Each phase prints one JSON line; the
@@ -264,6 +281,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -304,8 +322,10 @@ from repro_torch.kernels.selective_scan import (  # noqa: E402
 from repro_torch.kernels.selective_scan.ref import (  # noqa: E402
     selective_scan_fused_ref, selective_scan_ref)
 from repro_torch.core.middleware import AdmissionConfig  # noqa: E402
-from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
-from repro_torch.launch.train import train_loop  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import (make_local_mesh,  # noqa: E402
+                                     make_production_mesh)
+from repro_torch.launch.train import to_device, train_loop  # noqa: E402
 from repro_torch.lsm import DB, SCALE, ScenarioConfig, filters  # noqa: E402
 from repro_torch.lsm.tree import LSMTree  # noqa: E402
 from repro_torch.models import (encoder_kv, forward,  # noqa: E402
@@ -318,7 +338,9 @@ from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe_sharded  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
-from repro_torch.sharding import activation_constraint  # noqa: E402
+from repro_torch.sharding import (activation_constraint,  # noqa: E402
+                                  state_specs)
+from torch.distributed.tensor import DTensor  # noqa: E402
 from repro_torch.workloads import (YCSB, PoissonArrivals,  # noqa: E402
                                    ScenarioMatrix, ServingPool,
                                    ServingWorkload, TenantSpec,
@@ -352,7 +374,7 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
 # phase 7: the serving path at full size
 SERVE_REQUESTS = 24
 SERVE_NEW_TOKENS = 64
-ALL_PHASES = tuple(range(1, 19))
+ALL_PHASES = tuple(range(1, 20))
 
 
 def emit(**obj) -> None:
@@ -3934,6 +3956,235 @@ def merge_mesh(kernels: list, out: dict) -> None:
             row["launches_by_variant"][kind] += k
 
 
+# ----------------------------------------------------------------------
+# phase 19: the train loop on DTensor state, and one dry-run cell
+# ----------------------------------------------------------------------
+SHARDED_MAIN = "qwen3-1.7b"      # full width and depth, phase 13's batch
+SHARDED_STEPS = 3
+SHARDED_CKPT_STEPS = 2           # the checkpoint files, at the smoke config
+DRYRUN_CELL = ("qwen3-1.7b", "train_4k", "single")
+
+
+def card_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """``rel_err`` computed where the tensors are (one leaf of a 1.7B
+    state is too large to copy to the host by the hundred)."""
+    g, w = got.float(), want.float()
+    scale = float(w.abs().max())
+    return float((g - w).abs().max()) / (scale or 1.0)
+
+
+def bf16_steps(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Largest distance in bf16 steps between two bf16 tensors."""
+    def line(t):
+        b = t.view(torch.int16).int()
+        return torch.where(b < 0, -32768 - b, b)
+    return int((line(got) - line(want)).abs().max())
+
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def loop_run(cfg, dev, steps: int, ckpt_dir=None) -> tuple:
+    """``train_loop`` for ``steps`` steps of phase 13's batch and sequence,
+    logging every step, the counts zeroed just before and read just
+    after, the peak device memory reset before: (its output, a record)."""
+    stamps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_model_launches()
+    t0 = time.perf_counter()
+    out = train_loop(cfg, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     tc=TRAIN_TC, log_every=1, ckpt_dir=ckpt_dir,
+                     save_every=steps, device=dev,
+                     log=lambda msg: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    later = stamps[-1] - stamps[0]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    rec = {"wall_s": time.perf_counter() - t0,
+           "init_and_first_step_s": stamps[0] - t0,
+           "step_s": [b - a for a, b in zip(stamps, stamps[1:])],
+           "mean_step_s_2_on": later / (len(stamps) - 1),
+           "tokens_per_s_2_on": tokens * (len(stamps) - 1) / later,
+           "metrics": out["metrics"], "launches": model_launches(),
+           "flash_variants": dict(flash_kernel.variant_launches),
+           "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}
+    return out, rec
+
+
+def leaves(state: dict) -> dict:
+    """Every leaf of a train state by (field, name), local tensors."""
+    out = {("params", n): local(p.detach())
+           for n, p in state["model"].named_parameters()}
+    for f in ("master", "mu", "nu"):
+        out.update({(f, n): local(t) for n, t in
+                    getattr(state["opt"], f).items()})
+    out[("step", "")] = local(state["opt"].step)
+    return out
+
+
+def same_files(a: Path, b: Path) -> bool:
+    """Two checkpoint dirs' manifests and npz arrays equal, byte for
+    byte."""
+    if (a / "manifest.json").read_text() != (b / "manifest.json").read_text():
+        return False
+    with np.load(a / "arrays.npz") as x, np.load(b / "arrays.npz") as y:
+        return x.files == y.files and all(
+            x[k].dtype == y[k].dtype and x[k].tobytes() == y[k].tobytes()
+            for k in x.files)
+
+
+def phase_sharded_train(dev: str = "cuda") -> dict:
+    """Phase 19a: ``train_loop`` at Qwen3-1.7B's full width and depth on
+    one card, first with no process group (one device), then on DTensor
+    state over the (1, 1) mesh of a one-rank NCCL group, from the same
+    seed, state and batches: every step's loss, grad norm and lr within
+    1e-4, the final moments within 1e-4 of each tensor's largest and the
+    parameters within one bf16 step; the flash launches of each loop
+    counted (two a layer a step: the forward and its recompute); step
+    time, tokens/s, peak memory and, from one more profiled step of the
+    sharded state, the busy share.  Then both loops at the smoke config,
+    each saving its last step: the files byte-identical, and each
+    restores in the other's layout with every leaf equal."""
+    cfg = get_config(SHARDED_MAIN)
+    small = get_config(SHARDED_MAIN).smoke()
+    torch.cuda.empty_cache()
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    plain_out, plain = loop_run(cfg, dev, SHARDED_STEPS)
+    plain_small, _ = loop_run(small, dev, SHARDED_CKPT_STEPS, tmp / "plain")
+    init_group()
+    try:
+        sharded_out, sharded = loop_run(cfg, dev, SHARDED_STEPS)
+        want = train_launches(cfg, SHARDED_STEPS, 1)
+        rec = {"model": cfg.name, "layers": cfg.num_layers,
+               "params": sum(p.numel() for p in
+                             plain_out["state"]["model"].parameters()),
+               "batch": [TRAIN_BATCH, TRAIN_SEQ], "steps": SHARDED_STEPS,
+               "mesh": [1, 1], "one_device": plain, "sharded": sharded,
+               "expected_launches": want}
+        rel = [abs(got[k] - ref[k]) / abs(ref[k])
+               for (_, got), (_, ref) in zip(sharded["metrics"],
+                                             plain["metrics"])
+               for k in ("loss", "grad_norm", "lr")]
+        a, b = leaves(sharded_out["state"]), leaves(plain_out["state"])
+        placed = all(isinstance(t, DTensor) for t in
+                     sharded_out["state"]["model"].parameters())
+        rec["metrics_rel_err"] = max(rel)
+        rec["moments_rel_err"] = max(card_rel_err(a[k], b[k]) for k in b
+                                     if k[0] in ("mu", "nu"))
+        rec["masters_rel_err"] = max(card_rel_err(a[k], b[k]) for k in b
+                                     if k[0] == "master")
+        rec["param_bf16_steps"] = max(bf16_steps(a[k], b[k]) for k in b
+                                      if k[0] == "params")
+        rec["bit_equal"] = all(torch.equal(a[k], b[k]) for k in b)
+        del plain_out, a, b
+        torch.cuda.empty_cache()
+        mesh = make_local_mesh(1, dev)
+        step = make_train_step(cfg, TRAIN_TC, ParallelConfig(
+            seq_shard_activations=False), activation_constraint(mesh))
+        batch = to_device(SyntheticLM(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+                          .batch_at(SHARDED_STEPS), torch.device(dev), mesh)
+        holder = {"state": sharded_out["state"]}
+
+        def one():
+            holder["state"], m = step(holder["state"], batch)
+            holder["loss"] = m["loss"]
+        device_ms = device_busy_ms(one)
+        rec["profiled_step"] = {
+            "device_ms": device_ms, "loss": float(holder["loss"]),
+            "busy_share": device_ms / (1e3 * sharded["mean_step_s_2_on"])}
+        del sharded_out, holder, batch
+        torch.cuda.empty_cache()
+        sharded_small, _ = loop_run(small, dev, SHARDED_CKPT_STEPS,
+                                    tmp / "sharded")
+        like = state_shapes(small)
+        specs = (mesh, state_specs(mesh, small, like))
+        last = f"step_{SHARDED_CKPT_STEPS}"
+        from_sharded, _ = ckpt.restore(like, str(tmp / "sharded"),
+                                       device=dev)
+        from_plain, _ = ckpt.restore(like, str(tmp / "plain"), device=dev,
+                                     shardings=specs)
+        pairs = [(leaves(from_sharded), leaves(sharded_small["state"])),
+                 (leaves(from_plain), leaves(plain_small["state"]))]
+        rec["checkpoint"] = {
+            "model": small.name, "step": SHARDED_CKPT_STEPS,
+            "files_byte_identical": same_files(tmp / "plain" / last,
+                                               tmp / "sharded" / last),
+            "restores_in_the_other": all(
+                torch.equal(g[k], w[k]) for g, w in pairs for k in w),
+            "restored_sharded": all(isinstance(p, DTensor) for p in
+                                    from_plain["model"].parameters())}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(phase19a=rec)                  # before its checks
+    check(placed, "phase 19a: the sharded loop's parameters are DTensors")
+    check(len(sharded["metrics"]) == len(plain["metrics"]) == SHARDED_STEPS
+          and rec["metrics_rel_err"] <= TRAIN_TOL,
+          "phase 19a: every step's loss, grad norm and lr within 1e-4 of "
+          "the one-device loop's")
+    check(rec["moments_rel_err"] <= TRAIN_TOL
+          and rec["masters_rel_err"] <= TRAIN_TOL,
+          "phase 19a: moments and masters within 1e-4 of each tensor's "
+          "largest")
+    check(rec["param_bf16_steps"] <= 1,
+          "phase 19a: parameters within one bf16 step")
+    for name, r in (("one-device", plain), ("sharded", sharded)):
+        check(r["launches"] == {**{k: 0 for k in r["launches"]}, **want},
+              f"phase 19a: the {name} loop launched flash twice a layer a "
+              "step (forward and recompute) and nothing else")
+        check(r["flash_variants"] == {"mma": want["flash_attention"],
+                                      "simt": 0},
+              f"phase 19a: the {name} loop's flash on the tensor-core "
+              "kernel")
+    check(np.isfinite(rec["profiled_step"]["loss"]),
+          "phase 19a: the profiled sharded step's loss is finite")
+    ck = rec["checkpoint"]
+    check(ck["files_byte_identical"],
+          "phase 19a: the sharded loop's checkpoint is the one-device "
+          "loop's, byte for byte")
+    check(ck["restores_in_the_other"] and ck["restored_sharded"],
+          "phase 19a: each loop's checkpoint restores in the other's layout "
+          "with every leaf equal")
+    return rec
+
+
+def phase_dryrun_cell() -> dict:
+    """Phase 19b: the dry run's ``lower_cell`` for Qwen3-1.7B x train_4k
+    on the 16 x 16 production mesh of a fake group of 256 ranks (this
+    process rank 0, fake tensors on the host: no card, no exchange)."""
+    arch, shape, mesh_name = DRYRUN_CELL
+    with dryrun.fake_group(256):
+        mesh = make_production_mesh(device_type=dryrun.DEVICE)
+        rec = dryrun.lower_cell(arch, shape, mesh, mesh_name)
+    emit(phase19b=rec)                  # before its checks
+    rl = rec["roofline"]
+    check(rec["status"] == "ok" and rec["chips"] == 256,
+          "phase 19b: the 16 x 16 cell traced")
+    check(rl["flops_per_device"] * 256 >= rl["model_flops_total"] > 0,
+          "phase 19b: the ranks' FLOPs cover the model's 6 N D")
+    check({"all-gather", "reduce-scatter", "all-reduce"}
+          <= set(rec["collectives_by_op"]),
+          "phase 19b: the parameters' all-gathers, the gradients' "
+          "reduce-scatters and the all-reduces counted")
+    return rec
+
+
+def merge_sharded(kernels: list, out: dict) -> None:
+    """Count phase 19a's sharded-loop flash launches in the flash row's
+    ``launches``, ``launches_by_variant`` and ``by_path``."""
+    for row in kernels:
+        if row["name"] != "flash_attention":
+            continue
+        n = out["sharded"]["launches"]["flash_attention"]
+        row.setdefault("by_path", {})[
+            "Qwen3-1.7B train loop on DTensor state (phase 19)"] = n
+        row["launches"] += n
+        for kind, k in out["sharded"]["flash_variants"].items():
+            row["launches_by_variant"][kind] += k
+
+
 def timings(card: str, kernels: list) -> dict:
     return {"card": card, "kernels": [
         {k: v for k, v in d.items() if k in (
@@ -3950,7 +4201,7 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
                     help="comma-separated phases to run (4 needs 3, 8 "
                          "needs 7, 12 needs 11); the result lines print "
-                         "only when all eighteen run")
+                         "only when all nineteen run")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
     for later, first in ((4, 3), (8, 7), (12, 11)):
         if later in phases and first not in phases:
@@ -4089,6 +4340,12 @@ def main() -> int:
         finally:
             dist.destroy_process_group()
         merge_mesh(kernels, mesh_main)
+    if 19 in phases:
+        sharded = phase_sharded_train()
+        emit(phase19a_seconds=seconds(), card=card)
+        phase_dryrun_cell()
+        emit(phase19b_seconds=seconds(), card=card)
+        merge_sharded(kernels, sharded)
     if phases != set(ALL_PHASES):
         return 0
     emit(kernels=kernels)

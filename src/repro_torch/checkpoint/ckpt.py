@@ -23,6 +23,16 @@ as the reference casts to its ``state_shapes``: given
 ``D`` come back fp32 whatever the checkpoint holds.  ``save_async``
 snapshots to host memory at once (consistency) and writes in a thread.
 numpy and json only.
+
+DTensor state (``sharding.distribute`` under ``state_specs``) is
+gathered leaf by leaf to the reference's whole arrays on every rank (a
+collective: every rank calls ``save``), and one rank, the group's rank
+0, writes; the others wait for its publish.  The files are those of the
+same state saved unsharded, byte for byte.  ``restore(...,
+shardings=(mesh, specs))`` distributes the restored leaves under
+``specs`` on ``mesh``, as the reference's ``restore(shardings=...)``
+puts them on the current mesh: a checkpoint restores onto any mesh, or
+none.
 """
 from __future__ import annotations
 
@@ -35,6 +45,8 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..models.convert import reference_path, stack_layers, stacked_layers
 from ..models.model import Model
@@ -50,8 +62,11 @@ def _dtype_name(t: torch.Tensor) -> str:
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    """A host copy of ``t`` that npz takes: bf16 widened to fp32."""
+    """A host copy of ``t`` that npz takes: bf16 widened to fp32; a
+    DTensor gathered whole first."""
     t = t.detach()
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.cpu().numpy()
@@ -82,15 +97,37 @@ def _flatten(state: Dict) -> List[Leaf]:
     return out
 
 
+def _sharded(state: Dict) -> bool:
+    return isinstance(state["opt"].step, DTensor)
+
+
+def _writer(state: Dict) -> bool:
+    """Whether this process writes: always for a local state, rank 0 of
+    the group for DTensor state."""
+    return not _sharded(state) or dist.get_rank() == 0
+
+
 def save(state: Dict, step: int, ckpt_dir: str, keep_last: int = 3) -> Path:
-    """Synchronous atomic checkpoint."""
-    return _write(_flatten(state), step, ckpt_dir, keep_last)
+    """Synchronous atomic checkpoint.  On DTensor state every rank
+    gathers, rank 0 writes, and every rank returns once it is
+    published."""
+    flat = _flatten(state)
+    path = Path(ckpt_dir) / f"step_{step}"
+    if _writer(state):
+        path = _write(flat, step, ckpt_dir, keep_last)
+    if _sharded(state):
+        dist.barrier()
+    return path
 
 
 def save_async(state: Dict, step: int, ckpt_dir: str,
-               keep_last: int = 3) -> threading.Thread:
-    """Snapshot to host now; write in the background."""
+               keep_last: int = 3) -> Optional[threading.Thread]:
+    """Snapshot to host now (on DTensor state, a gather every rank takes
+    part in); write in the background, on the writing rank (None on the
+    others)."""
     flat = _flatten(state)                  # consistent snapshot
+    if not _writer(state):
+        return None
     t = threading.Thread(target=_write,
                          args=(flat, step, ckpt_dir, keep_last), daemon=True)
     t.start()
@@ -139,11 +176,13 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(like: Dict, ckpt_dir: str, step: Optional[int] = None,
-            device=None) -> Tuple[Dict, int]:
+            device=None, shardings=None) -> Tuple[Dict, int]:
     """Restore into the structure of ``like`` (a state such as
     ``state_shapes(cfg)`` gives, on any device, meta included): a new
     state on ``device`` (default: ``like``'s) whose every leaf has
-    ``like``'s shape and dtype.  Returns (state, step)."""
+    ``like``'s shape and dtype.  ``shardings``: (mesh, the state's spec
+    tree from ``sharding.state_specs``) to distribute the state under,
+    on every rank of the mesh.  Returns (state, step)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -180,4 +219,9 @@ def restore(like: Dict, ckpt_dir: str, step: Optional[int] = None,
     new_model.load_state_dict(trees["params"], assign=True)
     opt = OptState(step=opt_step,
                    **{f: trees[f"opt/.{f}"] for f in OPT_FIELDS})
-    return {"model": new_model, "opt": opt}, step
+    state = {"model": new_model, "opt": opt}
+    if shardings is not None:
+        from ..sharding import distribute
+        mesh, specs = shardings
+        state = distribute(state, mesh, specs)
+    return state, step

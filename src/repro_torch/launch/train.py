@@ -1,17 +1,25 @@
-"""End-to-end training driver on one device.
+"""End-to-end training driver, on one device or on DTensor state across
+the ranks of a process group.
 
 Wires: config -> synthetic data (deterministic resume) -> the train step
-on the device -> periodic checkpoints -> supervisor restart loop, as the
-reference's ``launch/train.py``; with no mesh (the loop runs on one
-card: ``model_parallel`` must be 1, and ``fsdp`` and
-``seq_shard_activations`` change nothing on one device, as on the
-reference's one-device mesh).  The meshes are ``launch/mesh.py``'s and
-the parameter and state specs ``sharding.py``'s; the loop takes them
-when it trains on DTensor state under ``sharding.state_specs``, the
-next slice of the port.
+-> periodic checkpoints -> supervisor restart loop, as the reference's
+``launch/train.py``.  With no process group the loop runs on one device
+(``model_parallel`` must be 1; ``fsdp`` and ``seq_shard_activations``
+change nothing there, as on the reference's one-device mesh).  With a
+group initialised (``torch.distributed.init_process_group``: NCCL for
+CUDA devices, gloo for the CPU) it trains on the group's
+``make_local_mesh(model_parallel)``: the state is initialised, or
+restored, under ``sharding.state_specs``, each batch is placed under the
+reference's ``batch_specs`` (tokens and targets sharded over the data
+axes), the step runs on DTensor state (``models.steps``), and rank 0
+writes the checkpoints, in the reference's layout whatever the mesh.
+``model_parallel > 1`` without a group raises: the loop never falls back
+to one device.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \\
       --steps 6 --batch 4 --seq 2048
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch qwen3-1.7b --smoke --model-parallel 2 --device cpu
 
 Each batch is assembled on the host by ``Prefetcher`` in a thread, pinned
 and copied to the card with ``non_blocking``; nothing is read back from
@@ -20,29 +28,49 @@ the device inside a step except at ``log_every``.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import distribute_tensor
 
+from .. import sharding as SH
 from ..checkpoint import ckpt
 from ..config import ParallelConfig, TrainConfig
 from ..configs import get_config
 from ..data import Prefetcher, SyntheticLM
 from ..ft import TrainSupervisor
 from ..models import steps as S
+from .mesh import make_local_mesh
 
 
-def to_device(batch: Dict[str, np.ndarray], device: torch.device
-              ) -> Dict[str, torch.Tensor]:
+def to_device(batch: Dict[str, np.ndarray], device: torch.device,
+              mesh=None) -> Dict[str, torch.Tensor]:
     """A host batch on ``device``: through pinned memory and a
     non-blocking copy for a CUDA device (the caching host allocator keeps
-    a pinned block until the copy that reads it has run)."""
+    a pinned block until the copy that reads it has run).  With ``mesh``,
+    each array becomes a DTensor sharded over ``data_axes(mesh)`` on its
+    first dim, as the reference's ``b_shard`` places tokens and targets;
+    every rank holds the same host batch, so each keeps its block with no
+    exchange."""
     if device.type != "cuda":
-        return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-    return {k: torch.from_numpy(v).pin_memory().to(device, non_blocking=True)
-            for k, v in batch.items()}
+        out = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    else:
+        out = {k: torch.from_numpy(v).pin_memory().to(device,
+                                                      non_blocking=True)
+               for k, v in batch.items()}
+    if mesh is None:
+        return out
+    pl = SH.placements(mesh, SH.P(SH.data_axes(mesh), None))
+    return {k: distribute_tensor(v, mesh, pl, src_data_rank=None)
+            for k, v in out.items()}
+
+
+def group_initialised() -> bool:
+    return dist.is_available() and dist.is_initialized()
 
 
 def train_loop(cfg, *, steps: int, batch: int, seq: int,
@@ -52,26 +80,43 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int,
                model_parallel: int = 1, log_every: int = 10,
                resume: bool = True, fail_at: Optional[int] = None,
                seed: int = 0, log=print, device="cuda") -> Dict:
-    if model_parallel != 1:
-        raise ValueError(f"model_parallel={model_parallel}: train_loop "
-                         "runs on one device; training on DTensor state "
-                         "under sharding.state_specs comes with the slice "
-                         "after the mesh and sharding rules")
+    """Train ``steps`` steps (see the module's docstring): on one device
+    with no process group, on DTensor state over the group's
+    ``make_local_mesh(model_parallel)`` with one.  Returns the final
+    step, the logged (step, loss) pairs, the wall time, the supervisor's
+    restarts and events, and the state; ``metrics`` beside ``losses``
+    holds every logged step's loss, grad norm and lr."""
+    device = torch.device(device)
+    if not group_initialised() and model_parallel != 1:
+        raise RuntimeError(
+            f"model_parallel={model_parallel} needs a process group: call "
+            "torch.distributed.init_process_group (NCCL for CUDA devices, "
+            "gloo for the CPU) before train_loop; it never falls back to "
+            "one device")
     tc = tc or TrainConfig(total_steps=steps)
     parallel = parallel or ParallelConfig(seq_shard_activations=False)
-    device = torch.device(device)
     data = SyntheticLM(cfg.vocab_size, batch, seq, seed=seed)
-    step_fn = S.make_train_step(cfg, tc, parallel)
     like = S.state_shapes(cfg)
+    mesh = shardings = constraint = None
+    if group_initialised():
+        mesh = make_local_mesh(model_parallel, device.type)
+        shardings = (mesh, SH.state_specs(mesh, cfg, like,
+                                          fsdp=parallel.fsdp))
+        constraint = SH.activation_constraint(
+            mesh, seq_shard=parallel.seq_shard_activations)
+    step_fn = S.make_train_step(cfg, tc, parallel, constraint)
 
     start_step = 0
     if ckpt_dir and resume and ckpt.latest_step(ckpt_dir) is not None:
-        state, start_step = ckpt.restore(like, ckpt_dir, device=device)
+        state, start_step = ckpt.restore(like, ckpt_dir, device=device,
+                                         shardings=shardings)
         log(f"[train] resumed from step {start_step}")
     else:
-        state = S.init_state(cfg, seed=tc.seed, device=device)
+        state = S.init_state(cfg, seed=tc.seed, device=device,
+                             shardings=shardings)
 
     losses: list = []
+    logged: list = []
     holder = {"state": state, "fail_at": fail_at}
 
     def run_steps(frm: int, to: int) -> int:
@@ -82,11 +127,13 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int,
                         and step == holder["fail_at"]:
                     holder["fail_at"] = None     # inject exactly once
                     raise RuntimeError("injected failure")
-                hb = to_device(next(it), device)
+                hb = to_device(next(it), device, mesh)
                 holder["state"], metrics = step_fn(holder["state"], hb)
                 if (step + 1) % log_every == 0 or step + 1 == to:
                     loss = float(metrics["loss"])
                     losses.append((step + 1, loss))
+                    logged.append((step + 1, {k: float(v) for k, v in
+                                              metrics.items()}))
                     log(f"[train] step {step+1:5d} loss {loss:.4f} "
                         f"lr {float(metrics['lr']):.2e} "
                         f"gnorm {float(metrics['grad_norm']):.2f}")
@@ -100,7 +147,8 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int,
 
     def restore() -> int:
         holder["state"] = None                  # free it before loading
-        st, step = ckpt.restore(like, ckpt_dir, device=device)
+        st, step = ckpt.restore(like, ckpt_dir, device=device,
+                                shardings=shardings)
         holder["state"] = st
         return step
 
@@ -110,8 +158,8 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int,
                     run_steps=run_steps, save=save,
                     restore=restore if ckpt_dir else (lambda: start_step))
     wall = time.time() - t0
-    return {"final_step": final, "losses": losses, "wall_s": wall,
-            "restarts": sup.restarts, "events": sup.events,
+    return {"final_step": final, "losses": losses, "metrics": logged,
+            "wall_s": wall, "restarts": sup.restarts, "events": sup.events,
             "state": holder["state"]}
 
 
@@ -127,6 +175,11 @@ def main():
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
+    if "WORLD_SIZE" in os.environ:      # started by torchrun
+        dist.init_process_group(
+            "nccl" if torch.device(args.device).type == "cuda" else "gloo")
+        if torch.device(args.device).type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
@@ -137,6 +190,8 @@ def main():
     last = out["losses"][-1][1] if out["losses"] else float("nan")
     print(f"[train] done: {out['final_step']} steps in {out['wall_s']:.1f}s"
           f"  loss {first:.3f} -> {last:.3f}")
+    if group_initialised():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -206,28 +206,40 @@ def _ffn(cfg: ModelConfig, x: torch.Tensor, layer: DecoderLayer,
     return x
 
 
+def sharded_moe(cfg: ModelConfig, constraint, b: int, s: int) -> bool:
+    """Whether ``_moe_dispatch`` takes the sharded MoE for a global batch
+    of ``b`` rows of ``s`` tokens: ``constraint`` carries a mesh with
+    sequence-sharded activations and the shapes divide it, as the
+    reference picks it."""
+    mesh = getattr(constraint, "mesh", None)
+    if not cfg.is_moe or mesh is None \
+            or not getattr(constraint, "seq_shard", False):
+        return False
+    from ..sharding import _axis_size
+    ep = _axis_size(mesh, "model")
+    return s % ep == 0 and b % _axis_size(mesh, constraint.dp) == 0 \
+        and (cfg.num_experts % ep == 0 or cfg.d_ff % ep == 0)
+
+
 def _moe_dispatch(cfg: ModelConfig, p: L.MoE, h: torch.Tensor,
                   constraint) -> torch.Tensor:
-    """The sharded MoE (``moe_sharded.moe_shard_map``) when ``constraint``
-    carries a mesh with sequence-sharded activations and the shapes
-    divide it, as the reference picks it; else ``layers.moe``.  A local
-    ``h`` (the model around it runs replicated on every rank) enters as
-    a DTensor, each rank taking its own slice with no exchange, and
-    leaves whole through ``full_tensor``."""
-    mesh = getattr(constraint, "mesh", None)
-    if mesh is not None and getattr(constraint, "seq_shard", False):
+    """The sharded MoE (``moe_sharded.moe_shard_map``) where
+    ``sharded_moe`` says so; else ``layers.moe``.  A local ``h`` enters
+    as a DTensor with no exchange: the whole tensor on every rank (the
+    model around it runs replicated), or this rank's rows under
+    ``constraint.local`` (a step on DTensor state); it leaves the same
+    way, through ``full_tensor`` or back to those rows."""
+    local = getattr(constraint, "local", None)
+    if getattr(constraint, "mesh", None) is not None:
         from torch.distributed.tensor import DTensor, Replicate
-
-        from ..sharding import _axis_size
-        from .moe_sharded import moe_shard_map
-        ep = _axis_size(mesh, "model")
-        b, s, _ = h.shape
-        if s % ep == 0 and b % _axis_size(mesh, constraint.dp) == 0 \
-                and (cfg.num_experts % ep == 0 or cfg.d_ff % ep == 0):
-            hd = DTensor.from_local(h, mesh, [Replicate()] * mesh.ndim,
-                                    run_check=False)
-            return moe_shard_map(p, cfg, hd, mesh,
-                                 constraint.dp).full_tensor()
+        mesh = constraint.mesh
+        hd = DTensor.from_local(h, mesh, local or [Replicate()] * mesh.ndim,
+                                run_check=False)
+        if sharded_moe(cfg, constraint, hd.shape[0], hd.shape[1]):
+            from .moe_sharded import moe_shard_map
+            y = moe_shard_map(p, cfg, hd, mesh, constraint.dp)
+            return y.full_tensor() if local is None \
+                else y.redistribute(mesh, local).to_local()
     return L.moe(p, cfg, h, constraint=constraint)
 
 

@@ -26,16 +26,22 @@ reference's tree paths by ``models.convert.reference_path``.
 ``named`` turns specs into DTensor placements, ``distribute`` a state's
 tensors into DTensors, and ``activation_constraint`` makes the callable
 the model's forward applies at the reference's constraint points.
+
+A step on DTensor state (``models.steps``) computes on local tensors:
+each rank takes the batch rows of ``row_layout`` (the data axes, and the
+model axis too when the rows divide over every rank) and gathers the
+parameters whole, their gradients ``Partial`` over the mesh dims that
+split the rows; ``local_rows`` and ``gather`` do the two.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
-from torch.distributed.tensor import (DTensor, Replicate, Shard,
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
 
 from .config import ModelConfig, ShapeSpec
@@ -278,34 +284,76 @@ def named(mesh, tree):
     raise TypeError(f"not a spec tree: {type(tree).__name__}")
 
 
-def distribute(tree, mesh, specs):
+def distribute(tree, mesh, specs, src_data_rank: Optional[int] = 0):
     """A state's tensors as DTensors on ``mesh`` under ``specs`` (the tree
     ``param_specs`` / ``state_specs`` / ``cache_specs`` gives): a
     ``Model``'s parameters are replaced in place by DTensor parameters
     (its ``requires_grad`` kept) and the module returned; dicts and
     ``OptState``s come back as new containers.  Each rank passes the same
     values (a model carried over by ``convert.from_reference``, or made
-    from one seed)."""
+    from one seed): ``src_data_rank`` (``distribute_tensor``'s) sends rank
+    0's, or with None each rank keeps its own block, with no exchange."""
     if isinstance(specs, P):
-        return distribute_tensor(tree, mesh, placements(mesh, specs))
+        return distribute_tensor(tree, mesh, placements(mesh, specs),
+                                 src_data_rank=src_data_rank)
     if isinstance(tree, nn.Module):
         for name, p in list(tree.named_parameters()):
             owner, _, leaf = name.rpartition(".")
             mod = tree.get_submodule(owner) if owner else tree
             setattr(mod, leaf, nn.Parameter(
-                distribute(p.detach(), mesh, specs[name]),
+                distribute(p.detach(), mesh, specs[name], src_data_rank),
                 requires_grad=p.requires_grad))
         return tree
     if isinstance(tree, dict):
-        return {k: distribute(v, mesh, specs[k]) for k, v in tree.items()}
+        return {k: distribute(v, mesh, specs[k], src_data_rank)
+                for k, v in tree.items()}
     if _is_namedtuple(tree):
-        return type(tree)(*(distribute(t, mesh, s)
+        return type(tree)(*(distribute(t, mesh, s, src_data_rank)
                             for t, s in zip(tree, specs)))
     raise TypeError(f"cannot distribute a {type(tree).__name__}")
 
 
 # ----------------------------------------------------------------------
-def activation_constraint(mesh, seq_shard: bool = False):
+def row_layout(mesh, rows: int) -> tuple:
+    """The placements of the batch rows a rank computes on in a step on
+    DTensor state: ``Shard(0)`` on the data axes, and on every other mesh
+    dim too when ``rows`` divide over all the ranks (the model axis then
+    joins data parallelism in the compute, each rank on its own rows),
+    else ``Replicate()`` there (the ranks of a model group compute the
+    same rows)."""
+    dp = data_axes(mesh)
+    every = rows % mesh.size() == 0
+    return tuple(Shard(0) if (n in dp or every) else Replicate()
+                 for n in mesh.mesh_dim_names)
+
+
+def local_rows(t: torch.Tensor, mesh, layout: tuple,
+               dim: int = 0) -> torch.Tensor:
+    """This rank's rows of ``t`` under ``layout`` (``row_layout``'s, the
+    rows on ``dim``): a DTensor is redistributed to it, a local tensor is
+    taken as the whole (replicated) tensor.  Slicing a dim a placement
+    already splits takes a block of the local tensor, with no
+    exchange."""
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    pl = [Shard(dim) if q.is_shard() else Replicate() for q in layout]
+    return t.redistribute(mesh, pl).to_local()
+
+
+def gather(p: DTensor, layout: tuple) -> torch.Tensor:
+    """The whole of parameter ``p`` on every rank, as a local tensor whose
+    gradient is this rank's contribution: ``Partial`` over the mesh dims
+    ``layout`` splits the rows on (their sum, once, lands in ``p``'s
+    placements: a reduce-scatter where ``p`` is sharded, an all-reduce
+    where it is replicated), replicated over the others."""
+    mesh = p.device_mesh
+    grad = [Partial() if q.is_shard() else Replicate() for q in layout]
+    return p.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=grad)
+
+
+def activation_constraint(mesh, seq_shard: bool = False, local=None):
     """The constraint the forward applies at the reference's points.
 
     kind="act":     between-layer residuals [B, S, D]: batch over the data
@@ -318,8 +366,11 @@ def activation_constraint(mesh, seq_shard: bool = False):
 
     A DTensor is redistributed to the kind's placements; a local tensor
     comes back unchanged (the model around it runs replicated on every
-    rank, as code inside a ``shard_map`` would).  ``.mesh``, ``.dp`` and
-    ``.seq_shard`` let the model pick the mesh-aware MoE."""
+    rank, as code inside a ``shard_map`` would, or on this rank's rows).
+    ``.mesh``, ``.dp`` and ``.seq_shard`` let the model pick the
+    mesh-aware MoE; ``.local`` says how a local activation lies in the
+    global one: None when it is the whole, else the ``row_layout`` of
+    the rows it holds."""
     dp = data_axes(mesh)
     seq = "model" if seq_shard else None
 
@@ -339,4 +390,5 @@ def activation_constraint(mesh, seq_shard: bool = False):
     f.mesh = mesh
     f.dp = dp
     f.seq_shard = seq_shard
+    f.local = local
     return f

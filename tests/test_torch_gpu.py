@@ -359,3 +359,58 @@ def test_cuda_store_matches_cpu_store(card):
     calls = port_calls["batch"] + port_calls["reprobe_epoch"] + \
         port_calls["reprobe_mixed_k"] + 1         # + the per-key read
     assert sum(launched.values()) <= calls
+
+
+# ----------------------------------------------------------------------
+# a train step on DTensor state
+# ----------------------------------------------------------------------
+@pytest.mark.gpu
+def test_sharded_step_matches_unsharded_step(card):
+    """One train step of the qwen3 smoke config (bf16, seed 0) on the card
+    with no mesh, and on DTensor state over the (1, 1) mesh of a one-rank
+    NCCL group: the same metrics and every leaf equal, and flash launched
+    in both (the forward and its recompute a layer)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import sharding as S
+    from repro_torch.config import ParallelConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import steps
+    cfg = get_config("qwen3-1.7b").smoke()
+    tc, par = TrainConfig(total_steps=10, warmup_steps=2), \
+        ParallelConfig(seq_shard_activations=False)
+    host = SyntheticLM(cfg.vocab_size, 2, 64, seed=3).batch_at(0)
+    flash_kernel.reset_launches()
+    plain, pm = steps.make_train_step(cfg, tc, par)(
+        steps.init_state(cfg, seed=0, device=card), to_device(host, card))
+    plain_launches = flash_kernel.launches["flash_attention"]
+    dist.init_process_group("cpu:gloo,cuda:nccl", store=dist.HashStore(),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh(1, "cuda")
+        specs = S.state_specs(mesh, cfg, steps.state_shapes(cfg))
+        flash_kernel.reset_launches()
+        sharded, sm = steps.make_train_step(
+            cfg, tc, par, S.activation_constraint(mesh))(
+            steps.init_state(cfg, seed=0, device=card,
+                             shardings=(mesh, specs)),
+            to_device(host, card, mesh))
+        sharded_launches = flash_kernel.launches["flash_attention"]
+        assert all(isinstance(p, DTensor)
+                   for p in sharded["model"].parameters())
+        for k in ("loss", "grad_norm", "lr"):
+            assert float(sm[k]) == float(pm[k]), k
+        for (n, p), (_, q) in zip(sharded["model"].named_parameters(),
+                                  plain["model"].named_parameters()):
+            assert torch.equal(p.to_local(), q), n
+        for f in ("master", "mu", "nu"):
+            for n, t in getattr(plain["opt"], f).items():
+                assert torch.equal(getattr(sharded["opt"], f)[n].to_local(),
+                                   t), (f, n)
+    finally:
+        dist.destroy_process_group()
+    assert plain_launches == sharded_launches == 2 * cfg.num_layers

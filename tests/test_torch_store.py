@@ -546,7 +546,8 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.cluster, repro_torch.workloads.sweep, "
             "repro_torch.workloads.drift, repro_torch.workloads.serving, "
             "repro_torch.sharding, repro_torch.launch.mesh, "
-            "repro_torch.launch.specs, repro_torch.models.moe_sharded; "
+            "repro_torch.launch.specs, repro_torch.models.moe_sharded, "
+            "repro_torch.roofline, repro_torch.launch.dryrun; "
             f"bad = [m for m in sys.modules if m.split('.')[0] in {banned}]; "
             "print(bad); assert not bad")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

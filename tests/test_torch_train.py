@@ -574,7 +574,9 @@ def test_train_loop_kill_and_resume(tmp_path):
 
 
 def test_train_loop_refuses_model_parallel():
-    with pytest.raises(ValueError, match="one device"):
+    """Without a process group ``model_parallel > 1`` raises: the loop
+    never falls back to one device."""
+    with pytest.raises(RuntimeError, match="needs a process group"):
         train_loop(_tiny(), steps=1, batch=2, seq=8, model_parallel=2,
                    device="cpu")
 

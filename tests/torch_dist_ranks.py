@@ -1,5 +1,6 @@
 """Ranks of a gloo process group on the CPU, for the port's multi-device
-tests (``tests/test_torch_sharding.py``, ``tests/test_torch_moe_sharded.py``).
+tests (``tests/test_torch_sharding.py``, ``tests/test_torch_moe_sharded.py``,
+``tests/test_torch_train_sharded.py``).
 
     python tests/torch_dist_ranks.py JOB RANK WORLD DIR
 
@@ -221,8 +222,149 @@ def job_prefill(rank: int, world: int, inputs) -> dict:
             "plain_moe_calls": len(plain), "mesh": tuple(mesh.shape)}
 
 
+TRAIN_ARCHS = ("qwen3-1.7b", "olmoe-1b-7b")
+TRAIN = dict(steps=3, batch=4, seq=16, model_parallel=2)
+
+
+def _quiet(*_):
+    pass
+
+
+def _train_arch(arch: str, tmp) -> dict:
+    """``job_train``'s loop for one arch."""
+    from repro_torch import sharding as S
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import steps as MS
+    cfg = get_config(arch).smoke()
+    d = tmp / arch
+    run = train_loop(cfg, ckpt_dir=str(d / "sharded"),
+                     save_every=1, log_every=1, log=_quiet,
+                     device="cpu", **TRAIN)
+    mesh = make_local_mesh(TRAIN["model_parallel"], "cpu")
+    like = MS.state_shapes(cfg)
+    specs = S.state_specs(mesh, cfg, like)
+    want = S.named(mesh, specs)
+    st = run["state"]
+    placed = all(tuple(p.placements) == want["model"][n]
+                 for n, p in st["model"].named_parameters())
+    placed &= tuple(st["opt"].step.placements) == want["opt"].step
+    for f in ("master", "mu", "nu"):
+        placed &= all(tuple(t.placements) == getattr(want["opt"], f)[n]
+                      for n, t in getattr(st["opt"], f).items())
+    first, _ = ckpt.restore(like, str(d / "first"), step=0,
+                            device="cpu", shardings=(mesh, specs))
+    ckpt.save(first, 0, str(d / "resaved"))
+    return {"losses": run["losses"], "placed": placed,
+            "final_step": run["final_step"]}
+
+
+def job_train(rank: int, world: int, inputs) -> dict:
+    """``train_loop(model_parallel=2)`` on each smoke config of
+    TRAIN_ARCHS from the step-0 checkpoint in DIR/<arch>/sharded (the
+    reference's initial state, its parameters in inputs' "dtype", which
+    ``layers.DTYPE`` is set to), saving every step there; its losses;
+    the placements of the state it ends with against ``state_specs``';
+    and the step-0 checkpoint in DIR/<arch>/first restored under the specs
+    and saved again, into DIR/<arch>/resaved (rank 0 writes).
+    ``layers.DTYPE`` is put back after."""
+    from pathlib import Path
+
+    import torch
+    from repro_torch.models import layers as L
+    tmp = Path(str(inputs["dir"]))
+    old, L.DTYPE = L.DTYPE, getattr(torch, str(inputs["dtype"]))
+    out = {}
+    try:
+        for arch in TRAIN_ARCHS:
+            out[arch] = _train_arch(arch, tmp)
+    finally:
+        L.DTYPE = old
+    return out
+
+
+def job_norm(rank: int, world: int, inputs) -> dict:
+    """``adamw.global_norm`` and ``adamw.update`` on a (2, 2) mesh:
+    inputs.npz's arrays distributed under each spec of ``NORM_SPECS``, and
+    the last gradient as a ``Partial`` over both mesh dims (each rank a
+    quarter of it) beside a replicated master."""
+    import torch
+    from torch.distributed.tensor import DTensor, Partial, distribute_tensor
+    from repro_torch import sharding as S
+    from repro_torch.config import TrainConfig
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import adamw
+    mesh = make_local_mesh(2, "cpu")
+    arrays = [torch.from_numpy(inputs[f"a{i}"]) for i in
+              range(len(NORM_SPECS))]
+    leaves = [distribute_tensor(a, mesh, S.placements(mesh, S.P(*spec)))
+              for a, spec in zip(arrays, NORM_SPECS)]
+    g = torch.from_numpy(inputs["g"])
+    partial = DTensor.from_local(g / 4, mesh, [Partial(), Partial()],
+                                 run_check=False)
+    master = distribute_tensor(torch.from_numpy(inputs["m"]), mesh,
+                               S.placements(mesh, S.P(None, None)))
+    opt = adamw.init({"w": master})
+    params, opt, m = adamw.update({"w": partial}, opt, TrainConfig())
+    return {"norm": float(adamw.global_norm(leaves)),
+            "norm_bf16": float(adamw.global_norm(
+                [t.to(torch.bfloat16) for t in leaves])),
+            "update_norm": float(m["grad_norm"]),
+            "master": opt.master["w"].full_tensor().numpy(),
+            "param": params["w"].full_tensor().float().numpy(),
+            "mu": opt.mu["w"].full_tensor().numpy()}
+
+
+def job_moe_train(rank: int, world: int, inputs) -> dict:
+    """One train step of the olmoe smoke config (fp32 from seed 0,
+    capacity factor 8: no pair drops) on DTensor state over a (2, 2) mesh
+    with the sequence-sharded constraint, so every MoE layer runs
+    ``moe_shard_map`` with its experts kept as DTensors, at grad_accum 1
+    and 2: the metrics, the first moments gathered whole, and the MoE's
+    collective calls."""
+    import torch
+    from repro_torch import sharding as S
+    from repro_torch.config import ParallelConfig, TrainConfig
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import moe_sharded as MS
+    from repro_torch.models import steps
+    cfg = _smoke("olmoe-1b-7b", capacity_factor=8.0)
+    mesh = make_local_mesh(2, "cpu")
+    specs = S.state_specs(mesh, cfg, steps.state_shapes(cfg))
+    batch = {k: torch.from_numpy(inputs[k]) for k in ("tokens", "targets")}
+    out = {}
+    for accum in (1, 2):
+        state = steps.init_state(cfg, seed=0, device="cpu",
+                                 dtype=torch.float32,
+                                 shardings=(mesh, specs))
+        step = steps.make_train_step(
+            cfg, TrainConfig(total_steps=10, warmup_steps=2),
+            ParallelConfig(grad_accum=accum),
+            S.activation_constraint(mesh, seq_shard=True))
+        MS.reset_launches()
+        state, m = step(state, batch)
+        out[accum] = {"metrics": {k: float(v) for k, v in m.items()},
+                      "mu": {n: t.full_tensor().numpy()
+                             for n, t in state["opt"].mu.items()},
+                      "launches": dict(MS.launches)}
+    return out
+
+
+NORM_SPECS = ((("data", "model"), None), (None, "model"), ("data", None),
+              (None, None), ("model", "data"))
+
+def job_sharded(rank: int, world: int, inputs) -> dict:
+    """``job_train``, ``job_norm`` and ``job_moe_train`` in one set of
+    ranks (each rank starts once)."""
+    return {"train": job_train(rank, world, inputs),
+            "norm": job_norm(rank, world, inputs),
+            "moe_train": job_moe_train(rank, world, inputs)}
+
+
 JOBS = {"placements": job_placements, "moe": job_moe,
-        "prefill": job_prefill}
+        "prefill": job_prefill, "sharded": job_sharded}
 
 
 def main() -> None:
