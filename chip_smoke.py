@@ -79,11 +79,14 @@ nvcc per source, all started together, into ``build/repro_torch/``, then:
    ``tests/test_kernels.py`` and at T in {1, 1000, 2048} x di in {3200,
    8192}, N 16, within 1e-4; the fused kernel also against v1 given bx
    formed outside, and at each of its lanes-a-channel options (2, 4)
-   whatever the wrapper picks; then the fused kernel's edges: T 1 and
-   on, one below and one above its 32-step chunk and half of it, di
-   3,000 (no multiple of any block's channels) and 37 (odd: 4-byte
-   copies), N 1, 5, 8, decays all 0 (dt 500), all 1 (dt 0) and 1 on
-   every other step, and B 1 at Falcon-Mamba's width;
+   whatever the wrapper picks, v1 at launch options (channels a block x
+   ring stages: 8 x 1, 40 x 2, 256 x 3) whatever its plan picks and on
+   its scalar route (bx offset by one float); then both kernels' edges:
+   T 1, on, one below and one above the fused kernel's 32-step chunk and
+   half of it and v1's 4-step stage, di 3,000 (no multiple of any
+   block's channels) and 37 (odd: 4-byte copies, v1's scalar route), N
+   1, 5, 8, decays all 0 (dt 500), all 1 (dt 0) and 1 on every other
+   step, and B 1 at Falcon-Mamba's width;
 10. model identity: Falcon-Mamba-7B at full width cut to 2 layers and
    Hymba-1.5B cut to 3 (``layer_windows`` takes the full-attention layers
    modulo depth: at 2 every Hymba layer is full), fp32 weights, TF32 off.
@@ -110,7 +113,8 @@ nvcc per source, all started together, into ``build/repro_torch/``, then:
    trace) (``phase11_busy``);
 12. the scans at the path's shapes: fused-scan calls captured uniformly in
    phase 11 again through the kernel and its plain version, and through
-   v1 with bx formed outside (not timed), compared and timed beside the
+   v1 with bx formed outside (not timed; v1's plan, channels a block and
+   stages, beside its time), compared and timed beside the
    least time the card could take (no PyTorch call computes the scan)
    and the special-function units' time for its exponentials
    (``bound_sfu_ms``: one a (t, d, n) at 16 a clock an SM, at the SM's
@@ -1547,20 +1551,25 @@ def phase_attention_captured(rec: AttentionRecorder, launched: dict,
 SCAN_CASES = ([(1, 64, 256, 8), (2, 128, 512, 16), (1, 256, 256, 4)]
               + [(2, t, di, 16) for t in (1, 1000, 2048)
                  for di in (3200, 8192)])
-# the fused kernel's edges (b, t, di, n, dt): T on, one below and one
-# above its chunk (32 steps a shared buffer) and half of it; di not a
-# multiple of any lanes option's channels a block (64, 32) and di
-# odd (dt and x copied 4 bytes at a time); N 1, 5, 8, 16; dt so large
+# both kernels' edges (b, t, di, n, dt): T on, one below and one above
+# the fused kernel's chunk (32 steps a shared buffer) and half of it, and
+# v1's ring stage (4 steps); di not a multiple of any lanes option's
+# channels a block (64, 32) nor of v1's plan, and di odd (dt and x copied
+# 4 bytes at a time; v1's scalar route); N 1, 5, 8, 16; dt so large
 # that every decay underflows to 0 (A bounded away from 0), dt 0 (every
 # decay 1) everywhere and on every other step; B 1 at Falcon-Mamba's width
-SCAN_EDGES = ([(2, t, 3000, 16, "model") for t in (1, 15, 16, 17, 31, 32,
-                                                   33)]
+SCAN_EDGES = ([(2, t, 3000, 16, "model") for t in (1, 3, 4, 5, 15, 16, 17,
+                                                   31, 32, 33)]
               + [(3, 70, 37, 16, "model"), (2, 40, 1000, 1, "model"),
                  (2, 40, 1000, 5, "model"), (2, 40, 1000, 8, "model"),
                  (2, 100, 1000, 16, "underflow"), (2, 100, 1000, 16, "zero"),
                  (2, 100, 1000, 16, "zero_odd_steps"),
                  (1, 2048, 8192, 16, "model")])
 SCAN_TOL = 1e-4                       # tests/test_kernels.py
+# v1's launch options (channels a block, ring stages) run at every case
+# whatever its plan picks: the fewest of each, a width no power of 2, the
+# widest block
+V1_OPTIONS = ((8, 1), (40, 2), (256, 3))
 
 
 def fused_case(rng, b, t, di, n, dev, dt_mode: str = "model") -> tuple:
@@ -1599,11 +1608,31 @@ def fused_lanes(lanes: int):
     return run
 
 
+def v1_forced(channels: int, stages: int):
+    """v1 launched with ``channels`` a block over ``stages`` whatever
+    the wrapper would pick (counts nothing)."""
+    def run(dt, bx, c, a):
+        y = torch.empty_like(dt)
+        scan_kernel.launch(scan_kernel.shape(dt.shape[0], dt.shape[2],
+                                             channels, stages),
+                           dt, bx, c, a, y)
+        return y
+    return run
+
+
+def offset(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` starting one element into its storage
+    (4 bytes past a 16-byte boundary for fp32)."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return out.view(t.shape).copy_(t)
+
+
 def scan_errors(call, every_lanes: bool = False) -> dict:
     """A fused-scan call (dt, x, B, C, A) through both kernels and both
     plain versions: {check: (max abs error, within SCAN_TOL)}; with
     ``every_lanes``, the fused kernel also at each lanes-a-channel option
-    against its plain version."""
+    and v1 at each of V1_OPTIONS and on its scalar route (bx offset by
+    one float) against their plain versions."""
     dt, x, bm, c, a = call
     fused = fused_kernel.selective_scan_fused(*call)
     want = selective_scan_fused_ref(*call)
@@ -1615,9 +1644,16 @@ def scan_errors(call, every_lanes: bool = False) -> dict:
     del want
     bx = form_bx(dt, x, bm)
     v1 = scan_kernel.selective_scan(dt, bx, c, a)
-    out["v1_vs_plain"] = within(v1, selective_scan_ref(dt, bx, c, a),
-                                SCAN_TOL)
+    v1_want = selective_scan_ref(dt, bx, c, a)
+    out["v1_vs_plain"] = within(v1, v1_want, SCAN_TOL)
     out["fused_vs_v1"] = within(fused, v1, SCAN_TOL)
+    if every_lanes:
+        for ch, st in V1_OPTIONS:
+            out[f"v1_{ch}x{st}_vs_plain"] = within(
+                v1_forced(ch, st)(dt, bx, c, a), v1_want, SCAN_TOL)
+        out["v1_scalar_vs_plain"] = within(
+            scan_kernel.selective_scan(dt, offset(bx), c, a), v1_want,
+            SCAN_TOL)
     return out
 
 
@@ -1635,9 +1671,11 @@ def phase_scan_kernels(dev) -> dict:
         out[name] = {k: {"max_abs_err": e, "ok": ok}
                      for k, (e, ok) in errs.items()}
         out[name]["lanes"] = fused_kernel.plan(b, di, sms).lanes
+        v1_plan = scan_kernel.plan(b, di, sms)
+        out[name]["v1_plan"] = [v1_plan.channels, v1_plan.stages]
     for name, r in out.items():
         for k, v in r.items():
-            if k != "lanes":
+            if k not in ("lanes", "v1_plan"):
                 check(v["ok"], f"phase 9 {name} {k}: within {SCAN_TOL}")
     return out
 
@@ -2206,11 +2244,16 @@ def phase_scan_captured(calls: dict, launched: dict) -> list:
                 ms = cuda_ms(fused_kernel.selective_scan_fused, cs, 10)
                 dev_ms = bracketed_ms(fused_kernel.selective_scan_fused, cs,
                                       5)
+            b, _, di = cs[0][0].shape
+            sms = fused_kernel.sm_count(cs[0][0].device)
+            v1_plan = scan_kernel.plan(b, di, sms)
             row["by_model"][model] = {
                 "shape": list(cs[0][0].shape) + [cs[0][4].shape[1]],
-                **({} if v1 else {"lanes": fused_kernel.plan(
-                    cs[0][0].shape[0], cs[0][0].shape[2],
-                    fused_kernel.sm_count(cs[0][0].device)).lanes}),
+                **({"channels": v1_plan.channels, "stages": v1_plan.stages,
+                    "busiest_sm_over_mean": scan_kernel.busiest_sm(
+                        b, di, v1_plan.channels, sms) / (b * di / sms)}
+                   if v1 else
+                   {"lanes": fused_kernel.plan(b, di, sms).lanes}),
                 "ms": ms, "device_ms": dev_ms,
                 "bound_ms": 1e3 * float(np.mean(np.maximum(
                     t_bytes[part], t_ops[part]))),

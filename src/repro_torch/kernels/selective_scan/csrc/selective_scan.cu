@@ -55,10 +55,43 @@
 // goes under that floor), and whatever keeps it from issuing one
 // exponential every clock a scheduler (see PERF.md).
 //
-// v1 (no model path calls it, as in the reference) keeps its first
-// design: 4 lanes a channel, 4 states a lane, the accurate expf, loads
-// and scan in turn, a shuffle reduction a step.  It is bound by bytes:
-// it reads the N-fold bx, 4 * N bytes a (t, d).
+// v1 (no model path calls it, as in the reference).  What bounds it:
+// it reads the N-fold bx, so a (t, d) moves 4 * (N + 2) bytes of dt, bx
+// and y, 72 at N 16, against 16 exponentials; the special-function
+// units' time for those is under a fifth of the bytes' at both model
+// shapes.  So it is bound by bytes, and what it must do is keep enough
+// of bx in flight.  The design:
+//   1. A ring of `stages` stages in dynamic shared memory, each holding
+//      dt, bx and C of 4 steps for the block's channels.  In the bulk
+//      route (N 16, di % 4 == 0, dt, bx and C 16-byte aligned) thread 0
+//      fills a stage with cp.async.bulk copies that complete on the
+//      stage's `full` mbarrier: a step's bx for the block's channels is
+//      one contiguous run of channels x 64 bytes, its dt one run, and
+//      the stage's C one run.  While one stage is scanned the others are
+//      in flight; each warp arrives on the stage's `empty` mbarrier when
+//      it is done with it, and thread 0 refills a stage once every warp
+//      has left it (the stage of the chunk before the current one, so
+//      it rarely waits).
+//   2. A balanced grid: the wrapper picks the channels a block (a
+//      multiple of 8, so whole warps, up to 256) from B * di and the
+//      card's SM count (selective_scan.py:plan), so that the busiest SM
+//      carries the fewest channels, and the stages from the shared
+//      memory an SM's blocks leave (at most 8).  At Hymba-1.5B's 12,800
+//      channels that is 124 blocks of 104 channels with 8 stages, at
+//      Falcon-Mamba-7B's 32,768 it is 128 blocks of 256 with 3: one
+//      block an SM, the busiest SM 7% and 3% above the mean.
+//   3. No reduction in the step loop: 4 lanes a channel, 4 states each;
+//      a stage's 4 steps leave 4 partial sums a lane, and one butterfly
+//      (reduce_scatter) leaves lane l with the whole y of step l.  Steps
+//      past T in the last stage, and channels past di, are scanned on
+//      whatever the stage holds and never stored: no other step or
+//      channel reads them.
+//   4. The accurate expf, as the plain version: it hides behind the
+//      bytes.
+// The scalar route (N < 16, di % 4 != 0, or an input not 16-byte
+// aligned) runs the same ring, filled by every thread with 4-byte
+// cp.async copies that arrive on the `full` mbarrier as they land; the
+// ring is zeroed once, so states past N read 0 from bx and C.
 //
 // The launchers allocate nothing and do not synchronise; they launch on
 // the caller's stream and return cudaGetLastError().
@@ -70,99 +103,6 @@
 namespace {
 
 constexpr int kMaxN = 16;                      // states a channel holds
-
-// ---------------------------------------------------------------- v1 --
-constexpr int kLanes = 4;                      // lanes per channel
-constexpr int kStates = 4;                     // states per lane
-constexpr int kThreads = 128;
-constexpr int kChannels = kThreads / kLanes;   // channels per block
-constexpr int kChunk = 32;                     // steps staged per pass
-
-// One block: channels d0 .. d0 + 31 of batch row b, reading bx.  kVec:
-// N == 16 and bx is 16-byte aligned, so a lane reads its 4 states of bx
-// as one float4.
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-    selective_scan_kernel(const float* __restrict__ dt,
-                          const float* __restrict__ src,
-                          const float* __restrict__ c,
-                          const float* __restrict__ a, float* __restrict__ y,
-                          int t_len, int di, int n) {
-  __shared__ float s_dt[kChunk][kChannels];
-  __shared__ float s_c[kChunk][kMaxN];
-  __shared__ float s_y[kChunk][kChannels];
-
-  const int b = blockIdx.y;
-  const int d0 = blockIdx.x * kChannels;
-  const int ch = threadIdx.x / kLanes;
-  const int lane = threadIdx.x % kLanes;
-  const int d = d0 + ch;
-  const bool live = d < di;
-  const size_t row0 = static_cast<size_t>(b) * t_len;   // (b, t = 0)
-
-  float av[kStates], h[kStates];
-#pragma unroll
-  for (int j = 0; j < kStates; ++j) {
-    const int s = lane * kStates + j;
-    av[j] = (live && s < n) ? a[static_cast<size_t>(d) * n + s] : 0.f;
-    h[j] = 0.f;
-  }
-
-  for (int t0 = 0; t0 < t_len; t0 += kChunk) {
-    const int steps = min(kChunk, t_len - t0);
-    for (int i = threadIdx.x; i < kChunk * kChannels; i += kThreads) {
-      const int tt = i / kChannels, cc = i % kChannels;
-      const bool ok = tt < steps && d0 + cc < di;
-      s_dt[tt][cc] = ok ? dt[(row0 + t0 + tt) * di + d0 + cc] : 0.f;
-    }
-    for (int i = threadIdx.x; i < kChunk * kMaxN; i += kThreads) {
-      const int tt = i / kMaxN, s = i % kMaxN;
-      const bool ok = tt < steps && s < n;
-      s_c[tt][s] = ok ? c[(row0 + t0 + tt) * n + s] : 0.f;
-    }
-    __syncthreads();
-
-    for (int tt = 0; tt < steps; ++tt) {
-      const float dtv = s_dt[tt][ch];
-      float bx[kStates];
-      if constexpr (kVec) {
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (live)
-          v = reinterpret_cast<const float4*>(
-              src + ((row0 + t0 + tt) * di + d) * kMaxN)[lane];
-        bx[0] = v.x;
-        bx[1] = v.y;
-        bx[2] = v.z;
-        bx[3] = v.w;
-      } else {
-#pragma unroll
-        for (int j = 0; j < kStates; ++j) {
-          const int s = lane * kStates + j;
-          bx[j] = (live && s < n)
-                      ? src[((row0 + t0 + tt) * di + d) * n + s]
-                      : 0.f;
-        }
-      }
-      float part = 0.f;
-#pragma unroll
-      for (int j = 0; j < kStates; ++j) {
-        h[j] = h[j] * expf(dtv * av[j]) + bx[j];
-        part += h[j] * s_c[tt][lane * kStates + j];
-      }
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      if (lane == 0) s_y[tt][ch] = part;
-    }
-    __syncthreads();
-
-    for (int i = threadIdx.x; i < steps * kChannels; i += kThreads) {
-      const int tt = i / kChannels, cc = i % kChannels;
-      if (d0 + cc < di) y[(row0 + t0 + tt) * di + d0 + cc] = s_y[tt][cc];
-    }
-    // the next pass writes s_dt and s_c only, and s_y after its own
-    // __syncthreads, which every thread reaches after this loop
-  }
-}
 
 // ------------------------------------------------------------- fused --
 constexpr int kFusedThreads = 128;
@@ -384,6 +324,202 @@ __global__ void __launch_bounds__(kFusedThreads)
   }
 }
 
+// ---------------------------------------------------------------- v1 --
+constexpr int kV1Lanes = 4;                     // lanes a channel
+constexpr int kV1States = kMaxN / kV1Lanes;     // states a lane
+constexpr int kV1Steps = kV1Lanes;              // steps a stage
+constexpr int kV1MaxThreads = 1024;
+constexpr int kV1MaxStages = 8;
+constexpr int kV1Header = 2 * kV1MaxStages * 8; // bytes of the mbarriers
+
+// Floats of one stage of a block of `channels`: bx
+// [kV1Steps][channels][16], dt [kV1Steps][channels], C [kV1Steps][16].
+__host__ __device__ constexpr int v1_stage_floats(int channels) {
+  return kV1Steps * (channels * (kMaxN + 1) + kMaxN);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// One arrival, made when every cp.async this thread issued has landed.
+__device__ __forceinline__ void mbar_arrive_cp_async(unsigned bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(bar)
+               : "memory");
+}
+
+// Wait for the completion of the barrier's phase of this parity.
+__device__ __forceinline__ void mbar_wait(unsigned bar, int parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const float* src,
+                                          int bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// One block: `channels` (blockDim.x / 4) channels d0 .. of batch row b,
+// over a ring of `stages` stages of kV1Steps steps.  kBulk: the bulk
+// route.
+template <bool kBulk>
+__global__ void __launch_bounds__(kV1MaxThreads, 1)
+    selective_scan_kernel(const float* __restrict__ dt,
+                          const float* __restrict__ bx,
+                          const float* __restrict__ c,
+                          const float* __restrict__ a, float* __restrict__ y,
+                          int t_len, int di, int n, int stages) {
+  extern __shared__ __align__(128) unsigned char v1_smem[];
+  const int channels = blockDim.x / kV1Lanes;
+  const int b = blockIdx.y;
+  const int d0 = blockIdx.x * channels;
+  const int width = min(channels, di - d0);      // channels held here
+  const int ch = threadIdx.x / kV1Lanes;
+  const int lane = threadIdx.x % kV1Lanes;
+  const int d = d0 + ch;
+  const bool live = ch < width;
+  const size_t row0 = static_cast<size_t>(b) * t_len;   // (b, t = 0)
+  const int chunks = (t_len + kV1Steps - 1) / kV1Steps;
+  const int stage_floats = v1_stage_floats(channels);
+  float* const ring = reinterpret_cast<float*>(v1_smem + kV1Header);
+  const unsigned bars = smem_addr(v1_smem);
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kV1MaxStages + s); };
+  auto s_bx = [&](int s) { return ring + s * stage_floats; };
+  auto s_dt = [&](int s) { return s_bx(s) + kV1Steps * channels * kMaxN; };
+  auto s_c = [&](int s) { return s_dt(s) + kV1Steps * channels; };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full(s), kBulk ? 1 : blockDim.x);
+      mbar_init(empty(s), blockDim.x / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if constexpr (!kBulk)
+    for (int i = threadIdx.x; i < stages * stage_floats; i += blockDim.x)
+      ring[i] = 0.f;
+  __syncthreads();
+
+  float av[kV1States], h[kV1States];
+#pragma unroll
+  for (int j = 0; j < kV1States; ++j) {
+    const int s = lane * kV1States + j;
+    av[j] = (live && s < n) ? a[static_cast<size_t>(d) * n + s] : 0.f;
+    h[j] = 0.f;
+  }
+
+  // Chunk k (steps k * kV1Steps ..) into stage k % stages: the bulk
+  // route's thread 0 alone; in the scalar route every thread its share.
+  auto issue = [&](int k) {
+    const int s = k % stages, t0 = k * kV1Steps;
+    const int steps = min(kV1Steps, t_len - t0);
+    float* const sbx = s_bx(s);
+    float* const sdt = s_dt(s);
+    float* const sc = s_c(s);
+    if constexpr (kBulk) {
+      mbar_expect_tx(full(s), 4 * steps * (width * (kMaxN + 1) + kMaxN));
+      for (int tt = 0; tt < steps; ++tt) {
+        const size_t g = (row0 + t0 + tt) * di + d0;
+        bulk_copy(sbx + tt * channels * kMaxN, bx + g * kMaxN,
+                  4 * width * kMaxN, full(s));
+        bulk_copy(sdt + tt * channels, dt + g, 4 * width, full(s));
+      }
+      bulk_copy(sc, c + (row0 + t0) * kMaxN, 4 * steps * kMaxN, full(s));
+    } else {
+      // a step's bx for the block's channels is one run of width * n
+      for (int tt = 0; tt < steps; ++tt) {
+        const size_t g = (row0 + t0 + tt) * di + d0;
+        for (int r = threadIdx.x; r < width * n; r += blockDim.x) {
+          const int cc = r / n;
+          cp_async4(sbx + (tt * channels + cc) * kMaxN + r - cc * n,
+                    bx + g * n + r, 4);
+        }
+        for (int cc = threadIdx.x; cc < width; cc += blockDim.x)
+          cp_async4(sdt + tt * channels + cc, dt + g + cc, 4);
+      }
+      for (int i = threadIdx.x; i < steps * n; i += blockDim.x) {
+        const int tt = i / n;
+        cp_async4(sc + tt * kMaxN + i - tt * n, c + (row0 + t0) * n + i, 4);
+      }
+      mbar_arrive_cp_async(full(s));
+    }
+  };
+
+  const bool producer = !kBulk || threadIdx.x == 0;
+  if (producer)
+    for (int k = 0; k < min(stages, chunks); ++k) issue(k);
+  for (int k = 0; k < chunks; ++k) {
+    const int s = k % stages;
+    // the stage chunk k - 1 used takes chunk k - 1 + stages once every
+    // warp has left it
+    if (producer && k >= 1 && k - 1 + stages < chunks) {
+      mbar_wait(empty((k - 1) % stages), ((k - 1) / stages) & 1);
+      issue(k - 1 + stages);
+    }
+    mbar_wait(full(s), (k / stages) & 1);
+    const float* const sbx = s_bx(s);
+    const float* const sdt = s_dt(s);
+    const float* const sc = s_c(s);
+    float part[kV1Steps];
+#pragma unroll
+    for (int tt = 0; tt < kV1Steps; ++tt) {
+      const float dtv = sdt[tt * channels + ch];
+      const float4 bq = reinterpret_cast<const float4*>(
+          sbx + (tt * channels + ch) * kMaxN)[lane];
+      const float4 cq = reinterpret_cast<const float4*>(sc + tt * kMaxN)
+          [lane];
+      const float bj[kV1States] = {bq.x, bq.y, bq.z, bq.w};
+      const float cj[kV1States] = {cq.x, cq.y, cq.z, cq.w};
+      float acc = 0.f;
+#pragma unroll
+      for (int j = 0; j < kV1States; ++j) {
+        h[j] = fmaf(h[j], expf(dtv * av[j]), bj[j]);
+        acc = fmaf(h[j], cj[j], acc);
+      }
+      part[tt] = acc;
+    }
+    // every lane's reads of the stage are in `part` once the butterfly
+    // has run
+    const float yv = reduce_scatter<kV1Lanes>(part, lane);
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) mbar_arrive(empty(s));
+    const int t = k * kV1Steps + lane;
+    if (live && t < t_len) y[(row0 + t) * di + d] = yv;
+  }
+}
+
 dim3 grid_of(int b, int di, int channels) {
   return dim3((di + channels - 1) / channels, b);
 }
@@ -408,21 +544,34 @@ bool aligned16(const void* p) {
 }  // namespace
 
 // All tensors fp32 and contiguous; 1 <= N <= 16, B <= 65535, T and di >= 1
-// (checked by the Python wrappers).
+// (checked by the Python wrappers).  channels: a multiple of 8 from 8 to
+// 256; stages: 1 to 8 (selective_scan.py:plan); anything else, or a ring
+// past the 227 KiB a block may take, is refused before a launch.
 extern "C" int selective_scan(const void* dt, const void* bx, const void* c,
                               const void* a, void* y, int b, int t, int di,
-                              int n, void* stream) {
+                              int n, int channels, int stages,
+                              void* stream) {
+  if (channels < 8 || channels % 8 != 0 ||
+      channels * kV1Lanes > kV1MaxThreads || stages < 1 ||
+      stages > kV1MaxStages)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* bxf = static_cast<const float*>(bx);
-  const dim3 grid = grid_of(b, di, kChannels);
-  if (n == kMaxN && aligned16(bx))
-    selective_scan_kernel<true><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(dt), bxf, static_cast<const float*>(c),
-        static_cast<const float*>(a), static_cast<float*>(y), t, di, n);
-  else
-    selective_scan_kernel<false><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(dt), bxf, static_cast<const float*>(c),
-        static_cast<const float*>(a), static_cast<float*>(y), t, di, n);
+  const int smem = kV1Header + stages * v1_stage_floats(channels) * 4;
+  const bool bulk = n == kMaxN && di % 4 == 0 && aligned16(dt) &&
+                    aligned16(bx) && aligned16(c);
+  auto* kernel =
+      bulk ? selective_scan_kernel<true> : selective_scan_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid_of(b, di, channels), channels * kV1Lanes, smem, s>>>(
+      static_cast<const float*>(dt), static_cast<const float*>(bx),
+      static_cast<const float*>(c), static_cast<const float*>(a),
+      static_cast<float*>(y), t, di, n, stages);
   return static_cast<int>(cudaGetLastError());
 }
 

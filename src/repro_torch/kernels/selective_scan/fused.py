@@ -11,13 +11,13 @@ without synchronising, and raises if the launch was refused.
 """
 from __future__ import annotations
 
-import functools
 from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from .. import _build
-from .selective_scan import MAX_BATCH, check_args, load, scan_dims
+from .selective_scan import (MAX_BATCH, check_args, load, scan_dims,
+                             sm_count)
 
 THREADS = 128           # a block's threads (kFusedThreads)
 CHUNK = 32              # steps a shared-memory buffer holds (kFusedChunk)
@@ -64,11 +64,6 @@ def plan(b: int, di: int, sm_count: int) -> Plan:
     lanes = next((n for n in LANES
                   if b * di * n >= WARPS_PER_SM * 32 * sm_count), LANES[-1])
     return shape(b, di, lanes)
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def launch(p: Plan, dt: torch.Tensor, x: torch.Tensor, bm: torch.Tensor,

@@ -54,6 +54,22 @@ RAGGED = [(2, 37, 200, 16), (1, 1, 48, 8), (3, 70, 96, 5)]
 EDGES = [(2, 40, 96, 16, "underflow"), (2, 40, 96, 16, "zero"),
          (2, 40, 96, 16, "zero_odd_steps"), (2, 40, 96, 1, "model"),
          (1, 33, 37, 5, "model"), (3, 17, 100, 8, "zero_odd_steps")]
+# v1's edges: T 1 and around its 4-step ring stage, di 3,000 (no multiple
+# of a block's channels) and 37 (the scalar route), N 1, 5, 8 (the scalar
+# route), decays all 0, all 1 and 1 on every other step, B 1 at
+# Falcon-Mamba-7B's width, and bx offset by one float (not 16-byte
+# aligned: the scalar route at N 16)
+V1_EDGES = ([(2, t, 3000, 16, "model") for t in (1, 3, 4, 5, 9)]
+            + [(3, 70, 37, 16, "model"), (2, 40, 1000, 1, "model"),
+               (2, 40, 1000, 5, "model"), (2, 40, 1000, 8, "model"),
+               (2, 100, 1000, 16, "underflow"), (2, 100, 1000, 16, "zero"),
+               (2, 100, 1000, 16, "zero_odd_steps"),
+               (1, 2048, 8192, 16, "model"), (2, 37, 200, 16, "bx_offset"),
+               (2, 65, 3000, 16, "bx_offset")])
+# v1's launch options (channels a block, stages) whatever the wrapper picks:
+# the fewest of each, a width no power of 2, the model shapes' plans (the
+# widest block among them)
+V1_OPTIONS = [(8, 1), (40, 2), (104, 8), (256, 3)]
 SCAN_TOL = dict(rtol=1e-4, atol=1e-4)
 # Bloom pairs cases: (filter sizes in keys, extra slots' num_words,
 # queries, pairs a query, the pairs' k: fixed values or "mixed" 1..16)
@@ -259,6 +275,15 @@ def _torch(*arrays, dev="cpu"):
     return [torch.from_numpy(a).to(dev) for a in arrays]
 
 
+def _offset(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts one element into its
+    storage (4 bytes past a 16-byte boundary for fp32)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def _bx(dt, x, bm):
     """bx formed outside, in the fused kernel's order: (dt * x) * B."""
     return (dt * x)[..., None] * bm[:, :, None, :]
@@ -294,6 +319,39 @@ def test_fused_kernel_lanes_match_plain(card, lanes, b, t, di, n, mode):
     fused_kernel.launch(fused_kernel.shape(b, di, lanes), dt, x, bm, c, a,
                         y)
     want = selective_scan_fused_ref(dt, x, bm, c, a)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_f32(y), _f32(want), **SCAN_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,di,n,mode", V1_EDGES)
+def test_v1_kernel_edges_match_plain(card, b, t, di, n, mode):
+    """v1 (bx formed outside) through the wrapper's plan at its edges."""
+    dt, x, bm, c, a = _torch(*_edge_inputs(13, b, t, di, n,
+                                           "model" if mode == "bx_offset"
+                                           else mode), dev=card)
+    bx = _bx(dt, x, bm)
+    want = selective_scan_ref(dt, bx, c, a)
+    if mode == "bx_offset":
+        bx = _offset(bx)
+        assert bx.is_contiguous() and bx.data_ptr() % 16 == 4
+    got = scan_kernel.selective_scan(dt, bx, c, a)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_f32(got), _f32(want), **SCAN_TOL)
+    if mode == "zero":
+        assert not got.abs().max()          # h stays 0: bx = 0 every step
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("channels,stages", V1_OPTIONS)
+@pytest.mark.parametrize("b,t,di,n", [(2, 65, 3000, 16), (1, 33, 37, 5)])
+def test_v1_kernel_options_match_plain(card, channels, stages, b, t, di, n):
+    dt, x, bm, c, a = _torch(*_fused_inputs(14, b, t, di, n), dev=card)
+    bx = _bx(dt, x, bm)
+    y = torch.empty_like(dt)
+    scan_kernel.launch(scan_kernel.shape(b, di, channels, stages), dt, bx,
+                       c, a, y)
+    want = selective_scan_ref(dt, bx, c, a)
     torch.cuda.synchronize()
     np.testing.assert_allclose(_f32(y), _f32(want), **SCAN_TOL)
 

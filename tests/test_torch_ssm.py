@@ -171,7 +171,8 @@ H100_SMS = 132
 # then the fused kernel's edges
 PHASE9 = ([(1, 64, 256, 8), (2, 128, 512, 16), (1, 256, 256, 4)]
           + [(2, t, di, 16) for t in (1, 1000, 2048) for di in (3200, 8192)]
-          + [(2, t, 3000, 16) for t in (1, 15, 16, 17, 31, 32, 33)]
+          + [(2, t, 3000, 16) for t in (1, 3, 4, 5, 15, 16, 17, 31, 32,
+                                        33)]
           + [(3, 70, 37, 16), (2, 40, 1000, 1), (2, 40, 1000, 5),
              (2, 40, 1000, 8), (2, 100, 1000, 16), (1, 2048, 8192, 16)])
 
@@ -227,6 +228,73 @@ def test_fused_shape_refuses(b, di, lanes):
 def test_fused_plan_refuses_past_the_grid():
     with pytest.raises(ValueError, match="rows"):
         fused_kernel.plan(scan_kernel.MAX_BATCH + 1, 64, H100_SMS)
+
+
+# ----------------------------------------------------------------------
+# v1's launch shape: a plain function of B, di, SMs
+# ----------------------------------------------------------------------
+def _check_v1_plan(p, b, di):
+    assert p.channels % 8 == 0                  # whole warps, 32-byte
+    assert p.threads == 4 * p.channels          # runs of dt; 4 lanes a
+    assert p.threads <= scan_kernel.MAX_THREADS  # channel
+    assert p.grid == (-(-di // p.channels), b)
+    assert (p.grid[0] - 1) * p.channels < di <= p.grid[0] * p.channels
+    assert 1 <= p.grid[1] <= scan_kernel.MAX_BATCH
+    assert 1 <= p.stages <= scan_kernel.MAX_STAGES
+    # the mbarriers, then per stage bx [4][channels][16], dt
+    # [4][channels] and C [4][16] in fp32; within what a block may take
+    # on an H100 (227 KiB)
+    assert p.smem_bytes == 128 + p.stages * 4 * 4 * (p.channels * 17 + 16)
+    assert p.smem_bytes <= 232448
+
+
+@pytest.mark.parametrize("b,t,di,n", PHASE9)
+def test_v1_plan_for_phase9_shapes(b, t, di, n):
+    p = scan_kernel.plan(b, di, H100_SMS)
+    _check_v1_plan(p, b, di)
+    assert p.stages >= scan_kernel.MIN_STAGES
+    # the blocks an SM runs at once fit its threads (64 registers each)
+    # and shared memory with the plan's stages
+    blocks = p.grid[0] * p.grid[1]
+    resident = min(-(-blocks // H100_SMS), 1024 // p.threads)
+    assert resident * p.threads <= 1024
+    assert resident * (p.smem_bytes + 1024) <= 233472
+    # no channels a block in CHANNELS gives the busiest SM fewer
+    load = scan_kernel.busiest_sm(b, di, p.channels, H100_SMS)
+    assert load == min(scan_kernel.busiest_sm(b, di, ch, H100_SMS)
+                       for ch in scan_kernel.CHANNELS)
+    for ch, st in ((8, 1), (40, 2), (256, 3)):  # what chip_smoke.py forces
+        _check_v1_plan(scan_kernel.shape(b, di, ch, st), b, di)
+
+
+@pytest.mark.parametrize("b,di,sms,channels,stages,grid", [
+    (4, 8192, 132, 256, 3, (32, 4)),    # Falcon-Mamba-7B's prefill
+    (4, 3200, 132, 104, 8, (31, 4)),    # Hymba-1.5B's prefill
+    (1, 8192, 132, 64, 8, (128, 1)),    # B 1 at Falcon's width
+    (4, 3200, 264, 56, 8, (58, 4)),     # a card with twice the SMs
+    (1, 1, 132, 8, 8, (1, 1))])
+def test_v1_plan_model_shapes(b, di, sms, channels, stages, grid):
+    p = scan_kernel.plan(b, di, sms)
+    assert (p.channels, p.stages, p.grid) == (channels, stages, grid)
+    _check_v1_plan(p, b, di)
+
+
+@pytest.mark.parametrize("b,di", [(4, 8192), (4, 3200)])
+def test_v1_plan_balances_the_model_shapes(b, di):
+    """On an H100 the busiest SM carries within 10% of the mean."""
+    p = scan_kernel.plan(b, di, H100_SMS)
+    assert scan_kernel.busiest_sm(b, di, p.channels, H100_SMS) <= \
+        1.1 * b * di / H100_SMS
+
+
+@pytest.mark.parametrize("b,di,channels,stages", [
+    (1, 64, 0, 3), (1, 64, 4, 3), (1, 64, 12, 3), (1, 64, 264, 3),
+    (1, 64, 8, 0),
+    (1, 64, 8, 9), (1, 64, 256, 4), (65536, 64, 8, 3), (0, 64, 8, 3),
+    (1, 0, 8, 3)])
+def test_v1_shape_refuses(b, di, channels, stages):
+    with pytest.raises(ValueError):
+        scan_kernel.shape(b, di, channels, stages)
 
 
 # ----------------------------------------------------------------------

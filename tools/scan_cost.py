@@ -3,6 +3,7 @@
 shapes.
 
     python3 tools/scan_cost.py [--src DIR] [--reps N] [--seed S] [--probe]
+                               [--v1-options CHxST,...]
 
 Seeded inputs (dt > 0, A < 0, fp32, as a Mamba layer feeds the scan) at
 the two shapes a model prefill launches, one fused scan a Mamba layer:
@@ -17,7 +18,16 @@ with CUDA events recorded just before and just after one launch, the
 same launch queued first so that the events bracket the kernel alone (as
 ``chip_smoke.py``'s ``bracketed_ms``).  Where the checkout's fused
 wrapper has ``plan`` and ``shape``, every lanes-a-channel option it is
-built for is checked and timed too.
+built for is checked and timed too.  Where v1's wrapper has them, its
+plan is printed beside its time (channels a block, stages, the busiest
+SM's channels over the mean), and v1 is checked and timed at other
+launch options (``v1_by_option``, "channels x stages": the plan's
+channels at 1 stage up to the plan's, and 32, 64, 128 and 256 channels
+a block at the stages ``plan`` would give them) and on its scalar route
+(``v1_scalar``: bx offset by one float, so not 16-byte aligned).
+``--v1-options`` names the options to time instead, "channels x stages"
+each; an option the launch refuses (a ring past a block's shared memory)
+is reported as refused.
 
 Beside each time: the byte bound (inputs read once, y written once, over
 3.35 TB/s) and the special-function-unit term, one exponential a
@@ -200,6 +210,19 @@ def probe(torch, sms: int, max_mhz: float) -> dict:
     return out
 
 
+def v1_options(sk, b: int, di: int, sms: int) -> list:
+    """(channels, stages) of v1's launch to time beside its plan: the
+    plan's channels at 1 stage up to the plan's, then 32, 64, 128 and 256
+    channels a block at the stages ``plan`` would give them."""
+    p = sk.plan(b, di, sms)
+    out = [(p.channels, st) for st in range(1, p.stages + 1)]
+    for ch in (32, 64, 128, 256):
+        st = sk.plan_stages(b, di, ch, sms)
+        if st >= 1 and (ch, st) not in out:
+            out.append((ch, st))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
@@ -207,6 +230,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--probe", action="store_true",
                     help="measure what bounds the fused kernel instead")
+    ap.add_argument("--v1-options", default=None,
+                    help="v1's launch options to time, e.g. 256x2,128x4")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
 
@@ -240,6 +265,15 @@ def main() -> int:
             pairs.append((start, end))
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in pairs) / len(pairs)
+
+    def v1_forced(b, di, channels, stages):
+        p = sk.shape(b, di, channels, stages)
+
+        def fn(dt, bx, c, a):
+            y = torch.empty_like(dt)
+            sk.launch(p, dt, bx, c, a, y)
+            return y
+        return fn
 
     def checked(fn, call, want):
         got = fn(*call)
@@ -280,7 +314,35 @@ def main() -> int:
         v1_call = (dt, bx, c, a)
         v1_want = selective_scan_ref(*v1_call)
         row["v1"] = checked(sk.selective_scan, v1_call, v1_want)
-        del bx, v1_call, v1_want
+        if hasattr(sk, "plan") and hasattr(sk, "shape"):
+            p = sk.plan(b, di, sms)
+            row["v1"]["plan"] = {
+                "channels": p.channels, "stages": p.stages,
+                "threads": p.threads, "grid": list(p.grid),
+                "busiest_sm_over_mean": sk.busiest_sm(
+                    b, di, p.channels, sms) / (b * di / sms)}
+            options = (v1_options(sk, b, di, sms) if args.v1_options is None
+                       else [tuple(map(int, o.split("x")))
+                             for o in args.v1_options.split(",")])
+            row["v1_by_option"] = {}
+            for ch, st in options:
+                try:
+                    fn = v1_forced(b, di, ch, st)
+                except ValueError as err:
+                    row["v1_by_option"][f"{ch}x{st}"] = {"refused": str(err)}
+                    continue
+                row["v1_by_option"][f"{ch}x{st}"] = checked(fn, v1_call,
+                                                            v1_want)
+            shifted = torch.empty(bx.numel() + 1, device=dev)
+            shifted = shifted[1:].view(bx.shape)
+            shifted.copy_(bx)
+            del bx
+            row["v1_scalar"] = checked(sk.selective_scan,
+                                       (dt, shifted, c, a), v1_want)
+            del shifted
+        else:
+            del bx
+        del v1_call, v1_want
         bytes_fused = 4 * (3 * b * t * di + 2 * b * t * n + di * n)
         bytes_v1 = 4 * (2 * b * t * di + b * t * di * n + b * t * n
                         + di * n)
