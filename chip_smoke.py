@@ -53,8 +53,13 @@ nvcc per source, all started together, into ``build/repro_torch/``, then:
    S 1,500, D 64, non-causal) and cross-attention (448 and 1 queries
    against 1,500 keys), and, bf16 only, Mixtral-8x22B's layer (48 / 8
    heads of 128, 8,192 tokens, window 4,096; its plain version one KV
-   head's group at a time: 12.9 GB of fp32 scores whole); fp32 within
-   2e-5, bf16 within 2e-2;
+   head's group at a time: 12.9 GB of fp32 scores whole); the dense
+   configs' groups: flash at Granite-34B's 48 / 1 heads of 128 (ragged
+   S 1,531, under every mask), Qwen2.5-14B's 40 / 8 and Minitron-4B's
+   24 / 8 (causal, S 1,000), paged at groups past a block's 16 rows (G
+   48 and 32 on one KV head, G 17 on two: three chunks, two, and a full
+   and a one-row chunk) at contexts past one split and at lens 0, 63
+   and 64; fp32 within 2e-5, bf16 within 2e-2;
 6. serving identity: Qwen3-1.7B at full width cut to 2 layers, fp32
    weights from one seeded generator, serves the same four requests on
    ``torch_device="cuda"`` and on ``"cpu"`` with a device KV pool small
@@ -268,7 +273,36 @@ nvcc per source, all started together, into ``build/repro_torch/``, then:
    the dry run's cell Qwen3-1.7B x train_4k on the 16 x 16 production
    mesh of a fake group of 256 ranks (``launch/dryrun.py``, fake tensors
    on the host): its roofline record.  The flash row counts 19a's sharded
-   loop's launches in ``by_path``.
+   loop's launches in ``by_path``;
+20. the remaining dense configs.  20a: Qwen2.5-14B (QKV bias),
+   Minitron-4B (a 256,000-token vocabulary) and Granite-34B (MQA, 48
+   query heads on one KV head) at full width cut to 2 layers, fp32
+   weights made on the card from one seeded generator and copied to the
+   CPU, TF32 off, card against CPU: ``make_prefill_step`` on 2 x 64
+   tokens, then 8 steps of ``make_serve_step`` (4 forced, fp32 caches):
+   logits within 1e-4 of the largest, greedy tokens identical, one flash
+   launch a layer of each prefill on the card; then Granite's model
+   through ``ServingEngine`` on 2 requests of 40-100 prompt tokens, 8 new
+   tokens each, over a device pool of three zones of 32 positions (a
+   sequence decodes from the host tier): tokens, manager stats and pool
+   byte counters identical, every forward's logits within 1e-4, one
+   paged launch per layer of each decode step, every one at G 48.  20b:
+   bf16 random weights (seed 0) made on the card, through phase 16's
+   path: Qwen2.5-14B (48 layers) and Minitron-4B (32) whole, Granite-34B
+   cut to 64 of its 88 layers (1.06 GB a layer; the cut leaves at least
+   8 GiB free), each ``make_prefill_step`` on 4 prompts of 2,048 tokens
+   (one flash launch a layer, on the tensor-core kernel) and
+   ``make_serve_step`` from the prefill's context; then Granite's cut
+   model, the same weights, through ``ServingEngine``: 4 requests of
+   512-1,536 prompt tokens, 16 new tokens each, counts zeroed before
+   ``run`` and read after: one paged launch per layer of each decode
+   step, all at G 48, every logit finite.  Reported: seconds, tokens/s,
+   peak memory, each prefill's device time by operation and busy share;
+   each model's first flash call and the engine's first paged call timed
+   with CUDA events beside the bound (paged at G 48: the larger of its
+   bytes and its fp32 operations), the plain version and
+   ``scaled_dot_product_attention`` (over the gathered pages for paged):
+   the flash and paged rows' ``by_model`` entries and ``by_path`` counts.
 
 TF32 is off for matmuls and cuDNN (the defaults for matmuls), so fp32
 products on the card are full fp32.  Each phase prints one JSON line; the
@@ -378,7 +412,7 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
 # phase 7: the serving path at full size
 SERVE_REQUESTS = 24
 SERVE_NEW_TOKENS = 64
-ALL_PHASES = tuple(range(1, 20))
+ALL_PHASES = tuple(range(1, 21))
 
 
 def emit(**obj) -> None:
@@ -1053,17 +1087,21 @@ def phase_captured(rec: Recorder, pk_rec: Recorder, launched: dict,
 # ----------------------------------------------------------------------
 # phase 5: attention kernels vs plain on seeded inputs
 # ----------------------------------------------------------------------
+# the last two: Qwen2.5-14B's (40 / 8 heads) and Minitron-4B's (24 / 8)
+# layer at D 128, G 5 and 3
 FLASH_CASES = [(1, 4, 4, 256, 64), (2, 8, 2, 512, 64), (1, 8, 1, 256, 128),
-               (1, 16, 8, 1000, 128), (1, 16, 8, 1531, 128)]
+               (1, 16, 8, 1000, 128), (1, 16, 8, 1531, 128),
+               (2, 40, 8, 1000, 128), (2, 24, 8, 1000, 128)]
 FLASH_MASKS = [(True, None), (False, None), (True, 64)]
 # the edges of the redesigned kernels, each under FLASH_EDGE_MASKS: G 5 and
 # 3 at ragged S (not a multiple of the 64-key tile) at D 64 and 128, D 16,
-# 48 (padded to 64) and 256, D 40 (bf16 takes the CUDA-core kernel) and D
-# 30 (rows loaded a value at a time in fp32 too)
+# 48 (padded to 64) and 256, D 40 (bf16 takes the CUDA-core kernel), D
+# 30 (rows loaded a value at a time in fp32 too), and Granite-34B's MQA,
+# G 48 on one KV head of 128
 FLASH_EDGE = [(2, 25, 5, 1531, 64), (1, 15, 5, 1531, 128),
               (1, 9, 3, 1531, 64), (1, 6, 2, 997, 128), (1, 6, 3, 200, 16),
               (1, 4, 1, 100, 48), (1, 4, 2, 333, 256), (1, 4, 2, 100, 40),
-              (1, 6, 3, 77, 30)]
+              (1, 6, 3, 77, 30), (1, 48, 1, 1531, 128)]
 FLASH_EDGE_MASKS = [(True, None), (False, None), (True, 64), (True, 1024)]
 # Hymba-1.5B's prefill (B 4, 25 / 5 heads, S 2,048, D 64): its full and
 # windowed layers
@@ -1078,14 +1116,24 @@ FLASH_FAMILY = [(4, 8, 8, 1500, 64, 1500), (4, 8, 8, 448, 64, 1500),
                 (4, 8, 8, 1, 64, 1500)]
 FLASH_MIXTRAL = (1, 48, 8, 8192, 128, 8192)
 PLAIN_SCORES_BYTES = 4 << 30  # attention_plain splits calls past this
-# (b, kv, g, pages, page_size, max_pages, d); the last is the engine's
+# (b, kv, g, pages, page_size, max_pages, d); the fourth is the engine's
+# at Qwen3-1.7B, then groups past a block's 16 rows: Granite-34B's G 48
+# on one KV head (three chunks; its engine's shape last), G 32 (two) and
+# G 17 on two KV heads (a full chunk and one of a row), contexts past one
+# split
 PAGED_CASES = [(2, 4, 2, 16, 16, 4, 64), (3, 2, 4, 32, 8, 8, 128),
-               (1, 1, 8, 8, 16, 2, 64), (1, 8, 2, 512, 16, 96, 128)]
+               (1, 1, 8, 8, 16, 2, 64), (1, 8, 2, 512, 16, 96, 128),
+               (2, 1, 48, 256, 16, 96, 128), (2, 1, 32, 256, 16, 96, 128),
+               (3, 2, 17, 128, 16, 40, 128), (1, 1, 48, 512, 16, 96, 128)]
 # the split's edges, lens given per sequence: lens 0, the last position of
 # a split (63) and the first of the next (64), one or two full splits and
 # a ragged tail, tables far longer than the context (empty splits), page
-# size 8, G 16 at D 256 and G 1 at D 32
+# size 8, G 16 at D 256 and G 1 at D 32; lens 0, 63 and 64 at G 48, 32
+# and 17
 PAGED_EDGE = [((3, 8, 2, 64, 16, 8, 128), (0, 63, 64)),
+              ((3, 1, 48, 64, 16, 8, 128), (0, 63, 64)),
+              ((3, 1, 32, 64, 16, 8, 128), (0, 63, 64)),
+              ((3, 2, 17, 64, 16, 8, 128), (0, 63, 64)),
               ((2, 8, 2, 64, 16, 8, 128), (127, 100)),
               ((2, 4, 4, 256, 16, 96, 128), (150, 1535)),
               ((1, 2, 8, 512, 16, 4000, 64), (700,)),
@@ -1165,7 +1213,9 @@ def phase_attention_kernels(dev) -> dict:
         out[name + ("" if lens is None else
                     f"_lens{'-'.join(map(str, lens))}")] = {
             "max_abs_err": err, "ok": ok,
-            "splits": paged_kernel.split_plan(shape[5], shape[4])}
+            "splits": paged_kernel.split_plan(shape[5], shape[4]),
+            "chunks": paged_kernel.group_chunks(shape[1] * shape[2],
+                                                shape[1])}
 
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
@@ -1214,6 +1264,48 @@ def record_logits(eng: ServingEngine) -> list:
     return log
 
 
+def engine_identity(cfg, models: dict, prompts: list, new: int,
+                    **pools) -> tuple:
+    """Each device's copy of a model (``models``: device -> model, the
+    card's first, then the CPU's) through ServingEngine on the same
+    ``prompts``, ``new`` tokens each, over ``pools``, the counts zeroed
+    just before ``run`` and read just after.  Returns (the comparison of
+    the first device's run with the CPU's, the runs)."""
+    runs = {}
+    for dev, model in models.items():
+        eng = ServingEngine(cfg, model, torch_device=dev, **pools)
+        log = record_logits(eng)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=new))
+        with AttentionRecorder({"flash_attention": set(),
+                                "paged_attention": set()}) as rec:
+            reset_attention_launches()
+            t0 = time.perf_counter()
+            stats = eng.run(max_steps=200)
+            sync(dev)
+            runs[dev] = {
+                "stats": stats, "wall_s": time.perf_counter() - t0,
+                "tokens": [r.out_tokens
+                           for r in sorted(eng.done, key=lambda r: r.rid)],
+                "pool_bytes": [(p.bytes_written, p.bytes_read)
+                               for p in (eng.hbm, eng.host)],
+                "staged_bytes": eng.staged_bytes, "logits": log,
+                "launches": attention_launches(),
+                "paged_groups": sorted(set(rec.groups))}
+        del eng
+    card, cpu = (runs[d] for d in models)
+    rel = [rel_err(g, c) for g, c in zip(card["logits"], cpu["logits"])]
+    return {"steps_compared": len(rel), "max_rel_logit_err": max(rel),
+            "tokens_identical": card["tokens"] == cpu["tokens"],
+            "stats_identical": card["stats"] == cpu["stats"],
+            "pool_bytes_identical": card["pool_bytes"] == cpu["pool_bytes"],
+            "staged_bytes": {d: r["staged_bytes"] for d, r in runs.items()},
+            "launches": {d: r["launches"] for d, r in runs.items()},
+            "paged_groups": card["paged_groups"],
+            "wall_s": {d: r["wall_s"] for d, r in runs.items()},
+            "stats": card["stats"], "pool_bytes": card["pool_bytes"]}, runs
+
+
 def phase_serving_identity(card_dev: str = "cuda") -> dict:
     cfg = dataclasses.replace(get_config("qwen3-1.7b"), num_layers=2)
     model = init_model(cfg, seed=0, device="cpu", dtype=torch.float32)
@@ -1225,42 +1317,14 @@ def phase_serving_identity(card_dev: str = "cuda") -> dict:
             lens.append(n)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in lens]
-    runs = {}
-    for dev in (card_dev, "cpu"):
-        # the card gets a copy: ServingEngine moves its model in place
-        m = copy.deepcopy(model) if dev == card_dev else model
-        eng = ServingEngine(cfg, m, page_size=16, pages_per_zone=8,
-                            hbm_zones=4, host_zones=32, cache_zones=1,
-                            max_batch=4, torch_device=dev)
-        log = record_logits(eng)
-        for i, p in enumerate(prompts):
-            eng.submit(Request(rid=i, prompt=p, max_new_tokens=16))
-        reset_attention_launches()
-        t0 = time.perf_counter()
-        stats = eng.run(max_steps=200)
-        torch.cuda.synchronize()
-        runs[dev] = {
-            "stats": stats, "wall_s": time.perf_counter() - t0,
-            "tokens": [r.out_tokens
-                       for r in sorted(eng.done, key=lambda r: r.rid)],
-            "pool_bytes": [(p.bytes_written, p.bytes_read)
-                           for p in (eng.hbm, eng.host)],
-            "staged_bytes": eng.staged_bytes, "logits": log,
-            "launches": attention_launches()}
-        del eng, m
+    # the card gets a copy: ServingEngine moves its model in place
+    ident, runs = engine_identity(
+        cfg, {card_dev: copy.deepcopy(model), "cpu": model}, prompts, 16,
+        page_size=16, pages_per_zone=8, hbm_zones=4, host_zones=32,
+        cache_zones=1, max_batch=4)
     torch.cuda.empty_cache()
     gpu, cpu = runs[card_dev], runs["cpu"]
-    rel = [float((g - c).abs().max() / c.abs().max())
-           for g, c in zip(gpu["logits"], cpu["logits"])]
-    out = {"layers": cfg.num_layers, "prompt_lens": lens,
-           "steps_compared": len(rel), "max_rel_logit_err": max(rel),
-           "tokens_identical": gpu["tokens"] == cpu["tokens"],
-           "stats_identical": gpu["stats"] == cpu["stats"],
-           "pool_bytes_identical": gpu["pool_bytes"] == cpu["pool_bytes"],
-           "staged_bytes": {d: r["staged_bytes"] for d, r in runs.items()},
-           "launches": {d: r["launches"] for d, r in runs.items()},
-           "wall_s": {d: r["wall_s"] for d, r in runs.items()},
-           "stats": gpu["stats"], "pool_bytes": gpu["pool_bytes"]}
+    out = {"layers": cfg.num_layers, "prompt_lens": lens, **ident}
     check(out["tokens_identical"], "phase 6: card and CPU tokens identical")
     check(out["stats_identical"], "phase 6: card and CPU stats identical")
     check(out["pool_bytes_identical"],
@@ -1287,12 +1351,14 @@ class AttentionRecorder:
     the arguments of the calls whose index is in ``keep``.  The engine
     reuses its pools, so a kept paged call keeps its pages gathered into
     a compact pool of their own, with the block table 0..n-1: the kernel
-    reads the same K/V through it."""
+    reads the same K/V through it.  ``groups`` holds every paged call's
+    query heads per KV head."""
 
     def __init__(self, keep: dict):
         self.keep = keep
         self.calls = {name: [] for name in keep}
         self.seen = {name: 0 for name in keep}
+        self.groups = []
         self._orig = (flash_ops.flash_attention, paged_ops.paged_attention)
 
     def _kept(self, name: str) -> bool:
@@ -1308,6 +1374,7 @@ class AttentionRecorder:
         return self._orig[0](q, k, v, causal, window)
 
     def paged(self, q, k_pages, v_pages, tables, lens):
+        self.groups.append(q.shape[1] // k_pages.shape[2])
         if self._kept("paged_attention"):
             pages = tables[0].long()
             self.calls["paged_attention"].append((
@@ -1325,30 +1392,24 @@ class AttentionRecorder:
         flash_ops.flash_attention, paged_ops.paged_attention = self._orig
 
 
-def phase_serving_main(dev: str = "cuda",
-                       n_requests: int = SERVE_REQUESTS):
-    cfg = get_config("qwen3-1.7b")
+def serve_requests(cfg, model, dev, n_requests: int, new: int, keep: dict,
+                   **pools) -> tuple:
+    """``model`` through ServingEngine over ``pools`` on ``n_requests``
+    seeded requests of 512-1,536 prompt tokens and ``new`` new tokens
+    each, the counts zeroed just before ``run`` and read just after, the
+    attention calls whose index is in ``keep`` kept.  Returns (record,
+    AttentionRecorder)."""
     t0 = time.perf_counter()
-    model = init_model(cfg, seed=0, device=dev)
-    eng = ServingEngine(cfg, model, page_size=16, pages_per_zone=8,
-                        hbm_zones=64, host_zones=192, cache_zones=2,
-                        max_batch=12, torch_device=dev)
-    torch.cuda.synchronize()
+    eng = ServingEngine(cfg, model, torch_device=dev, **pools)
+    sync(dev)
     load_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
     lens = rng.integers(512, 1537, n_requests)
     for i, n in enumerate(lens):
         eng.submit(Request(
             rid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
-            max_new_tokens=SERVE_NEW_TOKENS))
-    n_decode = n_requests * (SERVE_NEW_TOKENS - 1)
-    expected = {"flash_attention": n_requests * cfg.num_layers,
-                "paged_attention": n_decode * cfg.num_layers}
-    pick = np.random.default_rng(7)
-    keep = {"flash_attention": set(pick.choice(
-                expected["flash_attention"], 8, replace=False).tolist()),
-            "paged_attention": set(pick.choice(
-                expected["paged_attention"], 24, replace=False).tolist())}
+            max_new_tokens=new))
+    n_decode = n_requests * (new - 1)
     # wall time of prefills and decodes (each forward ends in a sync: the
     # argmax goes to the host) and of the host tier's staging copies (a
     # copy from pageable memory returns when it is done), and a count of
@@ -1377,47 +1438,82 @@ def phase_serving_main(dev: str = "cuda",
     eng._forward_tokens, eng._logits, eng._stage = timed, checked, staged
     torch.cuda.reset_peak_memory_stats()
     with AttentionRecorder(keep) as rec:
-        kernel.reset_launches()
-        reset_attention_launches()
+        reset_model_launches()
         t0 = time.perf_counter()
         stats = eng.run(max_steps=1000)
-        torch.cuda.synchronize()
+        sync(dev)
         run_s = time.perf_counter() - t0
-        launched = {**attention_launches(), **kernel.launches}
+        launched = model_launches()
         variants = dict(flash_kernel.variant_launches)
     out = {
         "model": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "heads": [cfg.num_heads, cfg.num_kv_heads],
         "params": sum(p.numel() for p in model.parameters()),
-        "requests": n_requests, "cut": SERVE_REQUESTS - n_requests,
+        "requests": n_requests,
         "prompt_tokens": int(lens.sum()), "mean_prompt": float(lens.mean()),
-        "new_tokens_each": SERVE_NEW_TOKENS, "decode_tokens": n_decode,
+        "new_tokens_each": new, "decode_tokens": n_decode,
         "load_s": load_s, "run_s": run_s, "prefill_s": wall["prefill"],
         "decode_s": wall["decode"], "stage_s": wall["stage"],
         "prefill_tokens_per_s": int(lens.sum()) / wall["prefill"],
         "decode_tokens_per_s": n_decode / wall["decode"],
+        "decode_ms_per_token": 1e3 * wall["decode"] / n_decode,
         "staged_bytes": eng.staged_bytes,
         "pool_bytes": {p.name: {"written": p.bytes_written,
                                 "read": p.bytes_read}
                        for p in (eng.hbm, eng.host)},
         "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "launches": launched, "expected_launches": expected,
-        "flash_variants": variants,
+        "launches": launched, "flash_variants": variants,
+        "paged_groups": sorted(set(rec.groups)),
+        "all_tokens": all(len(r.out_tokens) == new for r in eng.done),
         "nonfinite_logits": int(nonfinite), "stats": stats}
-    check(stats["done"] == n_requests and all(
-        len(r.out_tokens) == SERVE_NEW_TOKENS for r in eng.done),
-        "phase 7: every request done with all its tokens")
-    check(stats["demotions"] + stats["host_placements"] > 0,
+    del eng
+    return out, rec
+
+
+def check_served(out: dict, tag: str) -> None:
+    """serve_requests' checks common to phases 7 and 20b: every request
+    done with all its tokens, one flash launch per layer of each prefill
+    (each on one of its two kernels) and one paged launch per layer of
+    each decode step, no other kernel, every logit finite."""
+    n, launched = out["layers"], out["launches"]
+    check(out["stats"]["done"] == out["requests"] and out["all_tokens"],
+          f"{tag}: every request done with all its tokens")
+    check(launched["flash_attention"] == n * out["requests"]
+          and sum(out["flash_variants"].values())
+          == launched["flash_attention"],
+          f"{tag}: one flash launch per layer of each prefill, each on one "
+          "of its two kernels")
+    check(launched["paged_attention"] == n * out["decode_tokens"],
+          f"{tag}: one paged launch per layer of each decode step")
+    check(sum(launched.values()) == launched["paged_attention"]
+          + launched["flash_attention"],
+          f"{tag}: no other kernel (no Bloom launch, no scan)")
+    check(out["nonfinite_logits"] == 0, f"{tag}: every logit is finite")
+
+
+def phase_serving_main(dev: str = "cuda",
+                       n_requests: int = SERVE_REQUESTS):
+    cfg = get_config("qwen3-1.7b")
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    pick = np.random.default_rng(7)
+    keep = {"flash_attention": set(pick.choice(
+                n_requests * cfg.num_layers, 8, replace=False).tolist()),
+            "paged_attention": set(pick.choice(
+                n_requests * (SERVE_NEW_TOKENS - 1) * cfg.num_layers, 24,
+                replace=False).tolist())}
+    out, rec = serve_requests(cfg, model, dev, n_requests, SERVE_NEW_TOKENS,
+                              keep, page_size=16, pages_per_zone=8,
+                              hbm_zones=64, host_zones=192, cache_zones=2,
+                              max_batch=12)
+    out["load_s"] += init_s
+    out["cut"] = SERVE_REQUESTS - n_requests
+    check_served(out, "phase 7")
+    check(out["stats"]["demotions"] + out["stats"]["host_placements"] > 0,
           "phase 7: tier migrations fired")
-    check(launched["flash_attention"] == expected["flash_attention"],
-          "phase 7: one flash launch per layer of each prefill")
-    check(sum(variants.values()) == launched["flash_attention"],
-          "phase 7: every flash launch went to one of its two kernels")
-    check(launched["paged_attention"] == expected["paged_attention"],
-          "phase 7: one paged launch per layer of each decode step")
-    check(launched["bloom_probe"] == launched["bloom_probe_pairs"] == 0,
-          "phase 7: no Bloom launch on the serving path")
-    check(out["nonfinite_logits"] == 0, "phase 7: every logit is finite")
-    del eng, model
+    del model
     torch.cuda.empty_cache()
     return out, rec
 
@@ -3093,7 +3189,7 @@ def prefill_caches(cfg, kv: list, b: int, max_len: int, n: int,
     them) of positions 0 .. n - 1, position p in slot p % S as decode
     writes it: the last S of them in a ring of S slots."""
     caches = init_caches(cfg, b, max_len, device=dev)
-    check(len(kv) == cfg.num_layers, "phase 16: one k and v a decoder "
+    check(len(kv) == cfg.num_layers, "phases 16, 20: one k and v a decoder "
           "layer kept from the prefill")
     s = caches["k"].shape[2]
     pos = torch.arange(max(0, n - s), n, device=dev)
@@ -3105,28 +3201,33 @@ def prefill_caches(cfg, kv: list, b: int, max_len: int, n: int,
 
 
 def phase_family_main(name: str, layers, b: int, t: int,
-                      dev: str = "cuda") -> tuple:
+                      dev: str = "cuda", phase: str = "16",
+                      then=None, prompt: int = FAMILY_PROMPT,
+                      new: int = FAMILY_NEW) -> tuple:
     """Phase 16, one model: bf16 random weights (seed 0) made on the card,
     ``make_prefill_step`` on b prompts of t tokens (with frames or vision
     embeddings), then an encdec model's cross K/V (``encoder_kv``), then
     ``make_serve_step`` from the prefill's context: caches holding the
-    prefill's k and v of its first t - FAMILY_PROMPT positions, the last
-    FAMILY_PROMPT prompt tokens teacher-forced, FAMILY_NEW generated; the
+    prefill's k and v of its first t - ``prompt`` positions, the last
+    ``prompt`` prompt tokens teacher-forced, ``new`` generated; the
     counts zeroed before and read after each; the first flash call of
     each signature kept.  The decode's logits at the last prompt position
     are held against the prefill's (PREFILL_DECODE_TOL) on the families
     whose caches hold the whole context and that route no token through
     experts; then one prefill and BUSY_STEPS decode steps under the
-    profiler.  Returns (record, kept flash calls)."""
+    profiler.  ``phase`` names the record's line and its checks; ``then``,
+    if given, is called with (cfg, model) once the rest is freed and before
+    the model is (phase 20b serves Granite with the same weights).
+    Returns (record, kept flash calls)."""
     cfg = family_cfg(name, layers)
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
+    t0 = start = time.perf_counter()
     model = init_model(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     host = family_batch(cfg, b, t, 16)
     batch = to_dev(host, dev, L.DTYPE)
-    n0 = t - FAMILY_PROMPT                  # positions decode finds cached
+    n0 = t - prompt                         # positions decode finds cached
     tail = host["tokens"][:, n0:]
     per = flash_per_forward(cfg)
     torch.cuda.reset_peak_memory_stats()
@@ -3147,7 +3248,7 @@ def phase_family_main(name: str, layers, b: int, t: int,
                    "moe_pairs": rec.pairs, "dropped_pairs": dropped,
                    "dropped_share": dropped / rec.pairs if rec.pairs
                    else 0.0, "tokens_dropped": tokens_dropped}
-        caches = prefill_caches(cfg, rec.kv, b, t + FAMILY_NEW, n0, dev)
+        caches = prefill_caches(cfg, rec.kv, b, t + new, n0, dev)
         rec.kv.clear()
         rec.keep_kv = False
         encode = None
@@ -3167,12 +3268,12 @@ def phase_family_main(name: str, layers, b: int, t: int,
             reset_model_launches()
         t0 = time.perf_counter()
         _, gen, last, dec_nonfinite, steps = serve(
-            cfg, model, tail, FAMILY_NEW, dev,
-            keep_logits=FAMILY_PROMPT - 1, caches=caches, start=n0)
+            cfg, model, tail, new, dev,
+            keep_logits=prompt - 1, caches=caches, start=n0)
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
         slots = caches["k"].shape[2]
-        decode = {"batch": b, "prompt": FAMILY_PROMPT, "new": FAMILY_NEW,
+        decode = {"batch": b, "prompt": prompt, "new": new,
                   "steps": steps, "seconds": decode_s,
                   "tokens_per_s": b * steps / decode_s,
                   "new_tokens": int(gen.numel()),
@@ -3220,12 +3321,13 @@ def phase_family_main(name: str, layers, b: int, t: int,
         "decode_device_ms_per_step": step_dev,
         "decode_wall_ms_per_step": 1e3 * decode_s / steps,
         "decode_busy_share": step_dev * steps / (1e3 * decode_s)}
+    out["wall_s"] = time.perf_counter() - start
     out["flash_launches"] = (prefill["launches"]["flash_attention"]
                              + decode["launches"]["flash_attention"]
                              + (encode["launches"]["flash_attention"]
                                 if encode else 0))
-    emit(phase16={name: out})           # before its checks
-    tag = f"phase 16 {name}"
+    emit(**{f"phase{phase}": {name: out}})      # before its checks
+    tag = f"phase {phase} {name}"
     n_pre = sum(per.values())
     check(prefill["flash_kinds"] == per
           and prefill["launches"]["flash_attention"] == n_pre
@@ -3249,7 +3351,7 @@ def phase_family_main(name: str, layers, b: int, t: int,
     check(all(v["flash_variants"]["simt"] == 0
               for v in (prefill, decode, encode or prefill)),
           f"{tag}: every bf16 flash launch on the tensor-core kernel")
-    check(gen.shape == (b, FAMILY_NEW),
+    check(gen.shape == (b, new),
           f"{tag}: every sequence generated its tokens")
     check(out["nonfinite_logits"] == 0, f"{tag}: finite logits")
     check(not checked or max(rows) <= PREFILL_DECODE_TOL,
@@ -3258,7 +3360,11 @@ def phase_family_main(name: str, layers, b: int, t: int,
     check(cfg.num_layers == get_config(name).num_layers
           or out["free_device_gib"] >= MIN_FREE_GIB,
           f"{tag}: the cut model leaves at least {MIN_FREE_GIB} GiB free")
-    del model, batch, cross, caches
+    del batch, cross, caches
+    torch.cuda.empty_cache()
+    if then is not None:
+        then(cfg, model)
+    del model
     torch.cuda.empty_cache()
     return out, rec.calls
 
@@ -3298,11 +3404,12 @@ def flash_bound(call) -> tuple:
     return nbytes / HBM_BYTES_PER_S, 4 * b * h * d * seen / rate
 
 
-def phase_flash_families(calls: dict, outs: dict) -> dict:
-    """Phase 16's kept flash calls (the first of each signature a model
-    launched), each through the kernel and its plain version, compared
-    at the dtype's tolerance, and timed with CUDA events beside its bound
-    and scaled_dot_product_attention."""
+def phase_flash_families(calls: dict, outs: dict,
+                         phase: str = "16") -> dict:
+    """Phase 16's (or 20b's) kept flash calls (the first of each signature
+    a model launched), each through the kernel and its plain version,
+    compared at the dtype's tolerance, and timed with CUDA events beside
+    its bound and scaled_dot_product_attention."""
     gqa = sdpa_gqa()
     out = {}
     for model, cs in calls.items():
@@ -3319,8 +3426,8 @@ def phase_flash_families(calls: dict, outs: dict) -> dict:
             err, ok = within(flash_any(*call), want, TOL[q.dtype])
             lib_err = within(lib_fn(*lib_args), want, TOL[q.dtype])[0]
             del want
-            check(ok, f"phase 16 {model} flash {kind} {sq}x{skv}: within "
-                  f"{TOL[q.dtype]} of plain on the captured call")
+            check(ok, f"phase {phase} {model} flash {kind} {sq}x{skv}: "
+                  f"within {TOL[q.dtype]} of plain on the captured call")
             t_bytes, t_ops = flash_bound(call)
             key = "/".join(map(str, sig))
             out[f"{model} {kind} {sq}x{skv}"] = {
@@ -3343,18 +3450,19 @@ def phase_flash_families(calls: dict, outs: dict) -> dict:
     return out
 
 
-def merge_families(kernels: list, by_shape: dict, outs: dict) -> None:
-    """Give the flash row phase 16's timed shapes beside its ``by_model``
-    entries, and count phase 16's launches (prefill, cross caches,
-    decode) in its ``launches``, ``launches_by_variant`` and
-    ``by_path``.  No-op without phase 8's row."""
+def merge_families(kernels: list, by_shape: dict, outs: dict,
+                   path: str = "moe, encdec and vlm serving (phase 16)"
+                   ) -> None:
+    """Give the flash row phase 16's (or 20b's) timed shapes beside its
+    ``by_model`` entries, and count that phase's launches (prefill, cross
+    caches, decode) in its ``launches``, ``launches_by_variant`` and
+    ``by_path`` under ``path``.  No-op without phase 8's row."""
     for row in kernels:
         if row["name"] != "flash_attention":
             continue
         row.setdefault("by_model", {}).update(by_shape)
         n = sum(o["flash_launches"] for o in outs.values())
-        row.setdefault("by_path", {})[
-            "moe, encdec and vlm serving (phase 16)"] = n
+        row.setdefault("by_path", {})[path] = n
         row["launches"] += n
         for o in outs.values():
             for part in ("prefill", "encode", "decode"):
@@ -4228,6 +4336,229 @@ def merge_sharded(kernels: list, out: dict) -> None:
             row["launches_by_variant"][kind] += k
 
 
+# ----------------------------------------------------------------------
+# phase 20: the remaining dense configs
+# ----------------------------------------------------------------------
+# 20a: each at full width cut to DENSE_IDENT_LAYERS layers, fp32, card
+# against CPU: make_prefill_step on DENSE_IDENT_BATCH x DENSE_IDENT_TOKENS,
+# then make_serve_step teacher-forcing DENSE_IDENT_PROMPT tokens and
+# generating DENSE_IDENT_NEW (8 steps in all); then Granite's cut model
+# through ServingEngine on DENSE_ENGINE_REQUESTS prompts of 40-100 tokens
+# under a device pool of three zones of 32 positions, so a sequence is
+# demoted and decodes from the host tier
+DENSE_IDENTITY = ["qwen2.5-14b", "minitron-4b", "granite-34b"]
+DENSE_IDENT_LAYERS = 2
+DENSE_IDENT_BATCH, DENSE_IDENT_TOKENS = 2, 64
+DENSE_IDENT_PROMPT, DENSE_IDENT_NEW = 4, 5
+DENSE_ENGINE = "granite-34b"
+DENSE_ENGINE_REQUESTS, DENSE_ENGINE_NEW = 2, 8
+DENSE_ENGINE_POOLS = dict(page_size=16, pages_per_zone=2, hbm_zones=3,
+                          host_zones=32, cache_zones=1, max_batch=2)
+DENSE_TOL = 1e-4
+# 20b: (model, layers or None for all, prompts, tokens) through
+# phase_family_main, its decode DENSE_PROMPT forced and DENSE_NEW generated
+# tokens from the prefill's context (15 steps: phase 16's 63 at these
+# widths are 5-9 s a model of host-bound steps); Granite-34B (1.06 GB a
+# layer in bf16, 94.5 GB whole) cut to the layers that leave MIN_FREE_GIB
+# free of the 80 GB card
+GRANITE_LAYERS = 64
+DENSE_PROMPT, DENSE_NEW = 8, 8
+DENSE_MAIN = [("qwen2.5-14b", None, 4, 2048), ("minitron-4b", None, 4, 2048),
+              ("granite-34b", GRANITE_LAYERS, 4, 2048)]
+# then Granite's cut model, the same weights, through ServingEngine: four
+# requests of 512-1,536 prompt tokens, 16 new tokens each, on a device pool
+# that holds them all
+DENSE_SERVE_REQUESTS, DENSE_SERVE_NEW = 4, 16
+DENSE_SERVE_POOLS = dict(page_size=16, pages_per_zone=8, hbm_zones=64,
+                         host_zones=16, cache_zones=2, max_batch=4)
+
+
+def dense_identity_run(cfg, model, long: np.ndarray, short: np.ndarray,
+                       dev) -> dict:
+    """``make_prefill_step`` on ``long`` and ``make_serve_step`` over
+    ``short`` (fp32 caches) on ``dev``, the counts zeroed before and read
+    after; the flash windows recorded."""
+    reset_model_launches()
+    with ModelRecorder() as rec:
+        t0 = time.perf_counter()
+        nxt = make_prefill_step(cfg)(
+            model, {"tokens": torch.from_numpy(long).to(dev)})
+        _, gen, logs, nonfinite, steps = serve(
+            cfg, model, short, DENSE_IDENT_NEW, dev, keep_logits=True,
+            cache_dtype=torch.float32)
+        sync(dev)
+        wall = time.perf_counter() - t0
+    return {"prefill": nxt.float().cpu(), "decode": logs, "gen": gen.cpu(),
+            "steps": steps, "nonfinite": int(nonfinite) + int(
+                (~torch.isfinite(nxt)).sum()),
+            "windows": rec.windows, "launches": model_launches(),
+            "wall_s": wall}
+
+
+def phase_dense_identity(card_dev: str = "cuda") -> dict:
+    """Phase 20a: the three dense configs at full width cut to two layers,
+    fp32 weights made on the card from one seeded generator and copied to
+    the CPU, TF32 off, card against CPU."""
+    out = {}
+    for name in DENSE_IDENTITY:
+        cfg = dataclasses.replace(get_config(name),
+                                  num_layers=DENSE_IDENT_LAYERS)
+        model = init_model(cfg, seed=0, device=card_dev, dtype=torch.float32)
+        models = {card_dev: model, "cpu": copy.deepcopy(model).to("cpu")}
+        rng = np.random.default_rng(20)
+        long = rng.integers(0, cfg.vocab_size, (
+            DENSE_IDENT_BATCH, DENSE_IDENT_TOKENS)).astype(np.int32)
+        short = rng.integers(0, cfg.vocab_size, (
+            DENSE_IDENT_BATCH, DENSE_IDENT_PROMPT)).astype(np.int32)
+        runs = {dev: dense_identity_run(cfg, m, long, short, dev)
+                for dev, m in models.items()}
+        card, cpu = runs[card_dev], runs["cpu"]
+        n = cfg.num_layers
+        r = {"layers": n, "heads": [cfg.num_heads, cfg.num_kv_heads],
+             "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+             "prefill_tokens": list(long.shape),
+             "serve": [DENSE_IDENT_BATCH, DENSE_IDENT_PROMPT,
+                       DENSE_IDENT_NEW], "decode_steps": card["steps"],
+             "prefill_rel_err": rel_err(card["prefill"], cpu["prefill"]),
+             "decode_rel_err": max(rel_err(g, c) for g, c in
+                                   zip(card["decode"], cpu["decode"])),
+             "tokens_identical": bool(torch.equal(card["gen"], cpu["gen"])),
+             "launches": {d: x["launches"] for d, x in runs.items()},
+             "wall_s": {d: x["wall_s"] for d, x in runs.items()}}
+        tag = f"phase 20a {name}"
+        if name == DENSE_ENGINE:
+            rng = np.random.default_rng(20)
+            prompts = [rng.integers(0, cfg.vocab_size, k).astype(np.int32)
+                       for k in rng.integers(40, 101, DENSE_ENGINE_REQUESTS)]
+            r["engine"] = engine_identity(cfg, models, prompts,
+                                          DENSE_ENGINE_NEW,
+                                          **DENSE_ENGINE_POOLS)[0]
+        out[name] = r
+        del models, model
+        torch.cuda.empty_cache()
+        check(r["prefill_rel_err"] <= DENSE_TOL,
+              f"{tag}: card prefill logits within 1e-4 of the CPU's")
+        check(r["decode_rel_err"] <= DENSE_TOL,
+              f"{tag}: card decode logits within 1e-4 of the CPU's")
+        check(r["tokens_identical"], f"{tag}: greedy tokens identical")
+        check(len(card["decode"]) == len(cpu["decode"]) == card["steps"]
+              == DENSE_IDENT_PROMPT + DENSE_IDENT_NEW - 1,
+              f"{tag}: one logits vector a decode step")
+        check(card["nonfinite"] == cpu["nonfinite"] == 0,
+              f"{tag}: finite logits")
+        check(card["launches"]["flash_attention"] == n
+              and sum(card["launches"].values()) == n
+              and card["windows"] == [None] * n,
+              f"{tag}: one flash launch (full attention) per layer of the "
+              "prefill on the card, nothing else")
+        check(not any(cpu["launches"].values()),
+              f"{tag}: the CPU run launched no kernel")
+        if name != DENSE_ENGINE:
+            continue
+        e = r["engine"]
+        forwards = DENSE_ENGINE_REQUESTS * DENSE_ENGINE_NEW
+        check(e["tokens_identical"] and e["stats_identical"]
+              and e["pool_bytes_identical"],
+              f"{tag} engine: card and CPU tokens, stats and pool byte "
+              "counters identical")
+        check(e["steps_compared"] == forwards and e["max_rel_logit_err"]
+              <= DENSE_TOL,
+              f"{tag} engine: every forward's logits within 1e-4 of the "
+              "CPU's")
+        check(e["stats"]["demotions"] + e["stats"]["host_placements"] > 0
+              and e["staged_bytes"]["cpu"] == e["staged_bytes"][card_dev]
+              > 0, f"{tag} engine: a sequence placed on or demoted to the "
+              "host tier and decoded from there")
+        check(e["launches"][card_dev] == {
+                  "paged_attention": n * (forwards - DENSE_ENGINE_REQUESTS),
+                  "flash_attention": n * DENSE_ENGINE_REQUESTS}
+              and e["paged_groups"] == [cfg.num_heads // cfg.num_kv_heads],
+              f"{tag} engine: one paged launch per layer of each decode "
+              "step, all at G 48, one flash per layer of each prefill")
+        check(not any(e["launches"]["cpu"].values()),
+              f"{tag} engine: the CPU run launched no kernel")
+    return out
+
+
+def dense_engine_main(cfg, model, dev: str = "cuda") -> dict:
+    """Phase 20b's engine: ``model`` (Granite's cut model, on the card)
+    through ``serve_requests`` on DENSE_SERVE_REQUESTS requests, the first
+    paged call kept.  Returns the record and (as "call") the kept call."""
+    out, rec = serve_requests(cfg, model, dev, DENSE_SERVE_REQUESTS,
+                              DENSE_SERVE_NEW, {"flash_attention": set(),
+                                                "paged_attention": {0}},
+                              **DENSE_SERVE_POOLS)
+    emit(phase20b_engine=out)           # before its checks
+    tag = "phase 20b granite-34b engine"
+    check_served(out, tag)
+    check(out["paged_groups"] == [cfg.num_heads // cfg.num_kv_heads],
+          f"{tag}: every paged launch at G 48")
+    out["call"] = rec.calls["paged_attention"][0]
+    torch.cuda.empty_cache()
+    return out
+
+
+def paged_entry(call, launches: int) -> dict:
+    """One paged call (q, pages, block table, lens) through the kernel and
+    its plain version (fp32 2e-5), timed with CUDA events (``ms``, back to
+    back through the wrapper; ``bracketed_ms``, events around single
+    launches) and the profiler (``device_ms``, the kernel alone; None
+    when the profiler records no launch of it) beside its bound, the
+    plain version and scaled_dot_product_attention over the gathered
+    pages."""
+    q, kp = call[0], call[1]
+    err, ok = within(paged_kernel.paged_attention_decode(*call),
+                     paged_attention_ref(*call), TOL[q.dtype])
+    check(ok, f"phase 20b paged G {q.shape[1] // kp.shape[2]}: within "
+          f"{TOL[q.dtype]} of plain on the captured call")
+    gqa = sdpa_gqa()
+    lib_fn, lib_args = library_call("paged_attention", call, gqa)
+    t_bytes, t_ops = attention_bound("paged_attention", call)
+    h, kvh = q.shape[1], kp.shape[2]
+    return {"group": h // kvh, "heads": [h, kvh], "head_dim": q.shape[2],
+            "chunks": paged_kernel.group_chunks(h, kvh),
+            "context": int(call[4][0]) + 1,
+            "splits": paged_kernel.split_plan(call[3].shape[1],
+                                              kp.shape[1])[1],
+            "dtype": str(q.dtype).split(".")[1], "launches": launches,
+            "max_abs_err": err,
+            "ms": cuda_ms(paged_kernel.paged_attention_decode, [call], 50),
+            "device_ms": device_ms(paged_kernel.paged_attention_decode,
+                                   [call] * 20, "paged_decode_kernel"),
+            "bracketed_ms": bracketed_ms(
+                paged_kernel.paged_attention_decode, [call], 20),
+            "plain_ms": cuda_ms(paged_attention_ref, [call], 10),
+            "library_ms": cuda_ms(lib_fn, [lib_args], 50),
+            "library": "scaled_dot_product_attention" + (
+                "(enable_gqa)" if gqa else " (K/V repeated to H heads)"),
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_bytes_ms": 1e3 * t_bytes, "bound_ops_ms": 1e3 * t_ops,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def merge_dense_engine(kernels: list, engine: dict, entry: dict) -> None:
+    """Count phase 20b's engine launches in the paged and flash rows'
+    ``launches`` and ``by_path`` (the flash row's variants too), and give
+    the paged row the G 48 call's timings in ``by_model``.  No-op without
+    phase 8's rows."""
+    path = "Granite-34B serving (phase 20)"
+    for row in kernels:
+        name = row["name"]
+        if name not in ("paged_attention", "flash_attention"):
+            continue
+        n = engine["launches"][name]
+        if name == "paged_attention":
+            row.setdefault("by_path", {
+                "Qwen3-1.7B serving (phase 7)": row["launches"]})
+            row.setdefault("by_model", {})[
+                "granite-34b engine decode G 48"] = entry
+        else:
+            for kind, k in engine["flash_variants"].items():
+                row["launches_by_variant"][kind] += k
+        row["by_path"][path] = n
+        row["launches"] += n
+
+
 def timings(card: str, kernels: list) -> dict:
     return {"card": card, "kernels": [
         {k: v for k, v in d.items() if k in (
@@ -4244,7 +4575,7 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
                     help="comma-separated phases to run (4 needs 3, 8 "
                          "needs 7, 12 needs 11); the result lines print "
-                         "only when all nineteen run")
+                         "only when all twenty run")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
     for later, first in ((4, 3), (8, 7), (12, 11)):
         if later in phases and first not in phases:
@@ -4389,6 +4720,26 @@ def main() -> int:
         phase_dryrun_cell()
         emit(phase19b_seconds=seconds(), card=card)
         merge_sharded(kernels, sharded)
+    if 20 in phases:
+        emit(phase20a=phase_dense_identity(), card=card, seconds=seconds())
+        dense_out, dense_calls, engine = {}, {}, {}
+        for name, layers, b, t in DENSE_MAIN:
+            dense_out[name], dense_calls[name] = phase_family_main(
+                name, layers, b, t, phase="20b", prompt=DENSE_PROMPT,
+                new=DENSE_NEW,
+                then=(lambda cfg, model: engine.update(
+                    dense_engine_main(cfg, model)))
+                if name == DENSE_ENGINE else None)
+        by_shape = phase_flash_families(dense_calls, dense_out, "20b")
+        del dense_calls
+        entry = paged_entry(engine.pop("call"),
+                            engine["launches"]["paged_attention"])
+        torch.cuda.empty_cache()
+        emit(phase20b_flash=by_shape, phase20b_paged=entry,
+             seconds=seconds(), card=card)
+        merge_families(kernels, by_shape, dense_out,
+                       "dense configs' prefill (phase 20)")
+        merge_dense_engine(kernels, engine, entry)
     if phases != set(ALL_PHASES):
         return 0
     emit(kernels=kernels)

@@ -13,7 +13,9 @@ The source holds two kernels, and ``variant`` picks one from the inputs'
 dtype, head dim and alignment before the launch: ``"mma"``, bf16 on the
 tensor cores, for bf16 with D a multiple of 16 up to 256 and 16-byte
 aligned tensors; ``"simt"``, fp32 arithmetic on the CUDA cores (no TF32),
-for fp32 and any other bf16 call.
+for fp32 and any other bf16 call.  Both fold a KV head's G query heads
+into the rows of one problem, so any G fits; ``supports`` says which head
+counts the kernels take, and the wrapper raises on exactly the others.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ SIGNATURES = {"flash_attention_fwd": [_VP] * 4 + [_I] * 9 + [_VP],
               "flash_attention_fwd_bf16_wgmma": [_VP] * 4 + [_I] * 8 + [_VP]}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+MAX_GRID_YZ = 65535     # CUDA's limit on a grid's y and z extents
 
 launches: Dict[str, int] = {"flash_attention": 0}
 variant_launches: Dict[str, int] = {"mma": 0, "simt": 0}
@@ -40,6 +43,14 @@ def reset_launches() -> None:
     for counts in (launches, variant_launches):
         for name in counts:
             counts[name] = 0
+
+
+def supports(h: int, kvh: int, d: int) -> bool:
+    """Whether the kernels take ``h`` query heads of head dim ``d`` on
+    ``kvh`` KV heads: any group (H % KV == 0), at most MAX_GRID_YZ KV
+    heads (the grid's y extent) and 1 <= D <= MAX_HEAD_DIM."""
+    return (1 <= kvh <= min(h, MAX_GRID_YZ) and h % kvh == 0
+            and 1 <= d <= MAX_HEAD_DIM)
 
 
 def variant(dtype: torch.dtype, d: int, aligned: bool = True) -> str:
@@ -81,10 +92,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"v {tuple(v.shape)}")
     b, h, sq, d = q.shape
     bk, kvh, skv, dk = k.shape
-    if bk != b or dk != d or h % kvh or not 1 <= d <= MAX_HEAD_DIM \
-            or skv < 1:
+    if bk != b or dk != d or not supports(h, kvh, d) or skv < 1 \
+            or b > MAX_GRID_YZ:
         raise ValueError(f"q {tuple(q.shape)} against k {tuple(k.shape)}: "
-                         f"needs one batch, H % KV == 0, D <= "
+                         f"needs one batch of at most {MAX_GRID_YZ}, "
+                         f"H % KV == 0, KV <= {MAX_GRID_YZ}, D <= "
                          f"{MAX_HEAD_DIM} and at least one key")
     if window is not None and window < 1:
         raise ValueError(f"window={window}: needs None or >= 1")

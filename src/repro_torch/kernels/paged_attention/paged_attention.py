@@ -9,11 +9,15 @@ current stream without synchronising, and raises if the launch was
 refused.  ``launches`` counts its kernel launches.
 
 The kernel splits each sequence's context across blocks (``split_plan``)
-and its last block per (batch, KV head) combines the splits, so one launch
-does the whole call.  The blocks find the last one with an int32 arrival
-counter per (batch, KV head), which the kernel leaves at 0; the counters
-are made once per device and reused, so launches on one device must share
-one stream.
+and its last block per (batch, KV head, group chunk) combines the splits,
+so one launch does the whole call.  A block holds at most GROUP_CHUNK query
+rows of its KV head, so a larger group is cut into ``group_chunks`` chunks
+(Granite-34B's 48:1 MQA: three); a group of up to GROUP_CHUNK is one chunk.
+The blocks find the last one with an int32 arrival counter per (batch, KV
+head, chunk), which the kernel leaves at 0; the counters are made once per
+device and reused, so launches on one device must share one stream.
+``supports`` says which head counts the kernel takes; the wrapper raises
+on exactly the others.
 """
 from __future__ import annotations
 
@@ -29,8 +33,9 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {"paged_attention_decode": [_VP] * 8 + [_I] * 9 + [_VP]}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_GROUP = 16          # query heads per KV head the kernel holds
+GROUP_CHUNK = 16        # query rows of one KV head a block holds
 MAX_HEAD_DIM = 256
+MAX_GRID_YZ = 65535     # CUDA's limit on a grid's y and z extents
 MIN_SPLIT = 64          # positions a block takes at least
 MAX_SPLITS = 128        # blocks per (batch, KV head) at most
 
@@ -53,6 +58,21 @@ def split_plan(max_pages: int, page_size: int) -> Tuple[int, int]:
                          "both must be >= 1")
     pages = max(-(-MIN_SPLIT // page_size), -(-max_pages // MAX_SPLITS))
     return pages * page_size, -(-max_pages // pages)
+
+
+def group_chunks(h: int, kvh: int) -> int:
+    """Blocks a (batch, KV head, split) takes: ceil(G / GROUP_CHUNK) for
+    a group of G = h / kvh query heads, chunk c the rows [GROUP_CHUNK c,
+    min(GROUP_CHUNK (c + 1), G))."""
+    return -(-(h // kvh) // GROUP_CHUNK)
+
+
+def supports(h: int, kvh: int, d: int) -> bool:
+    """Whether the kernel takes ``h`` query heads of head dim ``d`` on
+    ``kvh`` KV heads: any group (H % KV == 0), as many KV heads x chunks
+    as the grid's y extent holds, and 1 <= D <= MAX_HEAD_DIM."""
+    return (1 <= kvh <= h and h % kvh == 0 and 1 <= d <= MAX_HEAD_DIM
+            and kvh * group_chunks(h, kvh) <= MAX_GRID_YZ)
 
 
 def counters(dev: torch.device, n: int) -> torch.Tensor:
@@ -102,16 +122,17 @@ def paged_attention_decode(q: torch.Tensor, k_pages: torch.Tensor,
                          f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
     bsz, h, d = q.shape
     _, page_size, kvh, dk = k_pages.shape
-    if dk != d or h % kvh or not 1 <= h // kvh <= MAX_GROUP \
-            or not 1 <= d <= MAX_HEAD_DIM:
+    if dk != d or not supports(h, kvh, d):
         raise ValueError(f"q heads {h} x {d} against {kvh} KV heads x {dk}: "
-                         f"needs H % KV == 0, H / KV <= {MAX_GROUP}, "
+                         f"needs H % KV == 0, KV x ceil(H / KV / "
+                         f"{GROUP_CHUNK}) <= {MAX_GRID_YZ}, "
                          f"D <= {MAX_HEAD_DIM}")
     if block_tables.dim() != 2 or block_tables.shape[0] != bsz \
-            or block_tables.shape[1] < 1 or context_lens.shape != (bsz,):
+            or block_tables.shape[1] < 1 or context_lens.shape != (bsz,) \
+            or bsz > MAX_GRID_YZ:
         raise ValueError(f"block_tables {tuple(block_tables.shape)} and "
                          f"context_lens {tuple(context_lens.shape)} for "
-                         f"batch {bsz}")
+                         f"batch {bsz} (at most {MAX_GRID_YZ})")
     out = torch.empty_like(q)
     if bsz == 0:
         return out
@@ -125,7 +146,8 @@ def paged_attention_decode(q: torch.Tensor, k_pages: torch.Tensor,
         err = lib.paged_attention_decode(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), counters(dev, bsz * kvh).data_ptr(),
+            scratch.data_ptr(),
+            counters(dev, bsz * kvh * group_chunks(h, kvh)).data_ptr(),
             DTYPES[q.dtype], bsz, h, kvh, d, page_size, max_pages, split,
             n_splits, stream)
     _build.raise_on(err, "paged_attention_decode")

@@ -16,7 +16,8 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                         context_lens: torch.Tensor) -> torch.Tensor:
     """q: [B, H, D]; pages [P, ps, KV, D]; tables int32 [B, MP]; lens
     int32 [B] (index of the newest valid token) -> [B, H, D] in q's dtype,
-    softmax in fp32."""
+    softmax in fp32.  Any group G = H / KV, as the kernel (which takes a
+    group past its 16 rows a block in chunks) and the reference do."""
     bsz, h, d = q.shape
     _, ps, kvh, _ = k_pages.shape
     mp = block_tables.shape[1]

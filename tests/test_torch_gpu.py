@@ -47,6 +47,16 @@ PAGED_SHAPES = [(2, 4, 2, 16, 16, 4, 64), (3, 2, 4, 32, 8, 8, 128),
                 (1, 1, 8, 8, 16, 2, 64)]
 # Hymba-1.5B's prefill: B 4, 25 / 5 heads, S 2,048, D 64
 HYMBA_FLASH = (4, 25, 5, 2048, 64)
+# the dense configs' groups at D 128: Granite-34B's MQA (48 / 1),
+# Qwen2.5-14B's 40 / 8 and Minitron-4B's 24 / 8, at ragged S
+DENSE_FLASH = [(1, 48, 1, 1531, 128), (2, 40, 8, 1000, 128),
+               (2, 24, 8, 1000, 128)]
+# paged groups past a block's 16 rows: G 48 (three chunks), 32 (two) and
+# 17 on two KV heads (a full chunk and one of a row), contexts past one
+# split; the same groups also at lens 0, 63 and 64 (PAGED_LENS)
+WIDE_PAGED = [(2, 1, 48, 256, 16, 96, 128), (2, 1, 32, 256, 16, 96, 128),
+              (3, 2, 17, 128, 16, 40, 128)]
+PAGED_LENS = (0, 63, 64)
 # scans (b, t, di, n): the sweep of tests/test_kernels.py, lengths and
 # widths the Pallas kernels refuse, and the fused kernel's edges
 SCAN_SHAPES = [(1, 64, 256, 8), (2, 128, 512, 16), (1, 256, 256, 4)]
@@ -113,7 +123,8 @@ def _randn(rng, shape, dtype: str) -> torch.Tensor:
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,kv,s,d", FLASH_SHAPES + [(1, 16, 8, 1000, 128),
                                                        (1, 16, 8, 1531, 128),
-                                                       HYMBA_FLASH])
+                                                       HYMBA_FLASH]
+                         + DENSE_FLASH)
 @pytest.mark.parametrize("dtype", list(ATTN_DTYPES))
 @pytest.mark.parametrize("causal,window", MASKS)
 def test_flash_kernel_matches_plain(card, b, h, kv, s, d, dtype, causal,
@@ -130,9 +141,25 @@ def test_flash_kernel_matches_plain(card, b, h, kv, s, d, dtype, causal,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,kv,g,pages,ps,mp,d",
-                         PAGED_SHAPES + [(1, 8, 2, 512, 16, 80, 128)])
+                         PAGED_SHAPES + [(1, 8, 2, 512, 16, 80, 128)]
+                         + WIDE_PAGED)
 @pytest.mark.parametrize("dtype", list(ATTN_DTYPES))
 def test_paged_kernel_matches_plain(card, b, kv, g, pages, ps, mp, d, dtype):
+    _check_paged(card, b, kv, g, pages, ps, mp, d, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv,g", [(1, 48), (1, 32), (2, 17)])
+@pytest.mark.parametrize("dtype", list(ATTN_DTYPES))
+def test_paged_kernel_wide_groups_at_split_edges(card, kv, g, dtype):
+    """lens 0 (every split but the first empty), on a split's last
+    position (63) and on the next's first (64), in a table of 8 pages of
+    16."""
+    _check_paged(card, len(PAGED_LENS), kv, g, 64, 16, 8, 128, dtype,
+                 PAGED_LENS)
+
+
+def _check_paged(card, b, kv, g, pages, ps, mp, d, dtype, lens=None):
     rng = np.random.default_rng(8)
     q, kp, vp = [_randn(rng, shape, dtype).to(card)
                  for shape in ((b, kv * g, d), (pages, ps, kv, d),
@@ -140,7 +167,8 @@ def test_paged_kernel_matches_plain(card, b, kv, g, pages, ps, mp, d, dtype):
     tables = torch.from_numpy(
         rng.integers(0, pages, (b, mp)).astype(np.int32)).to(card)
     lens = torch.from_numpy(
-        rng.integers(1, mp * ps, (b,)).astype(np.int32)).to(card)
+        (rng.integers(1, mp * ps, (b,)) if lens is None
+         else np.array(lens)).astype(np.int32)).to(card)
     got = paged_kernel.paged_attention_decode(q, kp, vp, tables, lens)
     want = paged_attention_ref(q, kp, vp, tables, lens)
     torch.cuda.synchronize()

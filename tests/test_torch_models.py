@@ -5,7 +5,9 @@
 configs of every family (``falcon-mamba-7b`` ssm, ``hymba-1.5b`` hybrid,
 ``qwen3-1.7b`` dense, ``olmoe-1b-7b`` and ``mixtral-8x22b`` moe, the
 latter with a ring-buffer cache, ``whisper-base`` encdec,
-``internvl2-26b`` vlm), with the reference's parameters carried over by
+``internvl2-26b`` vlm) and of the other dense configs (``qwen2.5-14b``
+with its QKV bias, ``minitron-4b``, ``granite-34b``'s MQA), with the
+reference's parameters carried over by
 ``from_reference``: logits within 1e-4 of the
 reference's relative to their largest magnitude with fp32 parameters (the
 two frameworks sum in another order) and 2e-2 with bf16 (one bf16
@@ -52,7 +54,8 @@ from repro_torch.models.convert import (reference_path,  # noqa: E402
                                         stacked_layers)
 
 ARCHS = ["falcon-mamba-7b", "hymba-1.5b", "qwen3-1.7b", "olmoe-1b-7b",
-         "mixtral-8x22b", "whisper-base", "internvl2-26b"]
+         "mixtral-8x22b", "whisper-base", "internvl2-26b", "qwen2.5-14b",
+         "minitron-4b", "granite-34b"]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 B, S = 2, 24              # S > the hybrid smoke window of 16
 
@@ -189,11 +192,12 @@ def test_forward_matches_reference(arch, dtype):
 # fp32 parameters decode against the bf16 caches ``init_caches`` makes,
 # except on these smoke configs: a k or v the two frameworks compute a
 # few fp32 ulps apart rounds to neighbouring bf16 values in a few elements
-# (4-8 of 4,096), which moves a logit by 1.1e-4 (olmoe) and 2.2e-4
-# (internvl2) of the largest, so their fp32 cases widen the caches to fp32
-# in both packages.  ``test_decode_fp32_caches_matches_reference`` runs
-# every config so.
-BF16_CACHES_MISS_FP32 = {"olmoe-1b-7b", "internvl2-26b"}
+# (4-8 of 4,096), which moves a logit by 1.1e-4 (olmoe), 2.2e-4
+# (internvl2, qwen2.5 and minitron) and 2.9e-4 (granite) of the largest,
+# so their fp32 cases widen the caches to fp32 in both packages.
+# ``test_decode_fp32_caches_matches_reference`` runs every config so.
+BF16_CACHES_MISS_FP32 = {"olmoe-1b-7b", "internvl2-26b", "qwen2.5-14b",
+                         "minitron-4b", "granite-34b"}
 
 
 def _check_decode(arch, dtype, fp32_caches):
