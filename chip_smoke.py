@@ -346,7 +346,8 @@ from repro_torch.kernels.bloom_probe import ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention as flash_kernel)
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_bwd_ref, attention_ref)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention as paged_kernel)
 from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
@@ -358,7 +359,8 @@ from repro_torch.kernels.selective_scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.selective_scan import (  # noqa: E402
     selective_scan as scan_kernel)
 from repro_torch.kernels.selective_scan.ref import (  # noqa: E402
-    selective_scan_fused_ref, selective_scan_ref)
+    selective_scan_fused_bwd_ref, selective_scan_fused_ref,
+    selective_scan_ref, ssm_scan_chunked)
 from repro_torch.core.middleware import AdmissionConfig  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import (make_local_mesh,  # noqa: E402
@@ -379,6 +381,7 @@ from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.sharding import (activation_constraint,  # noqa: E402
                                   state_specs)
 from torch.distributed.tensor import DTensor  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 from repro_torch.workloads import (YCSB, PoissonArrivals,  # noqa: E402
                                    ScenarioMatrix, ServingPool,
                                    ServingWorkload, TenantSpec,
@@ -1116,6 +1119,13 @@ FLASH_FAMILY = [(4, 8, 8, 1500, 64, 1500), (4, 8, 8, 448, 64, 1500),
                 (4, 8, 8, 1, 64, 1500)]
 FLASH_MIXTRAL = (1, 48, 8, 8192, 128, 8192)
 PLAIN_SCORES_BYTES = 4 << 30  # attention_plain splits calls past this
+# the backward kernels against their plain version and autograd, each
+# gradient relative to its largest; and a call whose last rows see no key
+# (S 300 against 100 keys, window 64: rows 163 on), the -1e30 fill's
+# uniform weights, causal and not
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+FLASH_MASKED = (1, 4, 2, 300, 64, 100)
+FLASH_MASKED_MASKS = [(True, 64), (False, 64)]
 # (b, kv, g, pages, page_size, max_pages, d); the fourth is the engine's
 # at Qwen3-1.7B, then groups past a block's 16 rows: Granite-34B's G 48
 # on one KV head (three chunks; its engine's shape last), G 32 (two) and
@@ -1164,17 +1174,65 @@ def flash_case(rng, b, h, kv, s, d, dtype, dev, skv=None):
 def attention_plain(q, k, v, causal=True, window=None):
     """``attention_ref``; a call whose fp32 scores would pass
     PLAIN_SCORES_BYTES (Mixtral's 8,192 x 8,192 a head: 12.9 GB) runs it
-    one KV head's query group at a time, which computes the same values
-    (the groups share nothing)."""
+    one KV head's query group at a time (``per_kv_head``)."""
+    return per_kv_head(lambda *a, **kw: (attention_ref(*a, **kw),), q, k, v,
+                       causal=causal, window=window)[0]
+
+
+def per_kv_head(fn, q, k, v, *rest, **kw):
+    """``fn`` on q/k/v (and the rest, shaped as q) one KV head's query
+    group at a time when the call's fp32 scores would pass
+    PLAIN_SCORES_BYTES, the outputs joined along the head axis (the
+    groups share nothing), else in one call; ``fn`` returns a tuple."""
     b, h, sq, _ = q.shape
     kvh, skv = k.shape[1], k.shape[2]
     if 4 * b * h * sq * skv <= PLAIN_SCORES_BYTES:
-        return attention_ref(q, k, v, causal=causal, window=window)
+        return fn(q, k, v, *rest, **kw)
     g = h // kvh
-    return torch.cat([attention_ref(q[:, i * g:(i + 1) * g].contiguous(),
-                                    k[:, i:i + 1], v[:, i:i + 1],
-                                    causal=causal, window=window)
-                      for i in range(kvh)], dim=1)
+    parts = [fn(q[:, i * g:(i + 1) * g].contiguous(), k[:, i:i + 1],
+                v[:, i:i + 1], *(t[:, i * g:(i + 1) * g] for t in rest),
+                **kw)
+             for i in range(kvh)]
+    return tuple(torch.cat(ts, dim=1) for ts in zip(*parts))
+
+
+def attention_grads_autograd(q, k, v, dout, causal=True, window=None):
+    """(dq, dk, dv) by autograd through ``attention_ref``."""
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = attention_ref(*qkv, causal=causal, window=window)
+        return torch.autograd.grad(out, qkv, dout)
+
+
+def flash_bwd_errors(q, k, v, causal, window) -> dict:
+    """The backward kernels on one seeded call (their forward's out and
+    log-sum-exp, a seeded dout laid out as the model's layers hand it
+    back: [B, Sq, H, D] memory seen as [B, H, Sq, D]) against
+    ``attention_bwd_ref`` and autograd through ``attention_ref``, each
+    gradient relative to its largest, and a second launch on the same
+    inputs bit for bit."""
+    out, lse = flash_kernel.flash_attention_fwd(q, k, v, causal=causal,
+                                                window=window, with_lse=True)
+    b, h, sq, d = q.shape
+    dout = torch.randn((b, sq, h, d), generator=torch.Generator(q.device)
+                       .manual_seed(sq), device=q.device,
+                       dtype=torch.float32).to(q.dtype).transpose(1, 2)
+    got = flash_kernel.flash_attention_bwd(q, k, v, out, lse, dout,
+                                           causal=causal, window=window)
+    again = flash_kernel.flash_attention_bwd(q, k, v, out, lse, dout,
+                                             causal=causal, window=window)
+    ref = per_kv_head(attention_bwd_ref, q, k, v, out, dout, causal=causal,
+                      window=window)
+    auto = per_kv_head(attention_grads_autograd, q, k, v, dout,
+                       causal=causal, window=window)
+    tol = FLASH_BWD_TOL[q.dtype]
+    errs = {f"d{n}_vs_{kind}": card_rel_err(x, y)
+            for kind, want in (("plain", ref), ("autograd", auto))
+            for n, x, y in zip("qkv", got, want)}
+    return {"errors": errs, "ok": all(e <= tol for e in errs.values()),
+            "bitwise_repeat": all(torch.equal(x, y)
+                                  for x, y in zip(got, again)),
+            "variant": flash_kernel.bwd_variant(q.dtype, q.shape[3])}
 
 
 def paged_case(rng, b, kv, g, pages, ps, mp, d, dtype, dev, lens=None):
@@ -1189,21 +1247,30 @@ def paged_case(rng, b, kv, g, pages, ps, mp, d, dtype, dev, lens=None):
 
 
 def phase_attention_kernels(dev) -> dict:
+    """Both attention kernels' forward, and flash's backward (every
+    forward case, and the rows that see no key), against their plain
+    versions in fp32 and bf16."""
     rng = np.random.default_rng(5)
-    out = {}
+    masked_rng = np.random.default_rng(55)
+    out, back = {}, {}
 
-    def flash(dtype, shape, masks):
+    def flash(dtype, shape, masks, forward=True, gen=rng):
         for causal, window in masks:
-            q, k, v = flash_case(rng, *shape[:5], dtype, dev, *shape[5:])
-            got = flash_kernel.flash_attention_fwd(
-                q, k, v, causal=causal, window=window)
-            want = attention_plain(q, k, v, causal=causal, window=window)
-            err, ok = within(got, want, TOL[dtype])
-            out[f"flash_{dname}_{'x'.join(map(str, shape))}"
-                f"_causal{int(causal)}_window{window}"] = {
+            q, k, v = flash_case(gen, *shape[:5], dtype, dev, *shape[5:])
+            tag = f"{dname}_{'x'.join(map(str, shape))}" \
+                f"_causal{int(causal)}_window{window}"
+            if forward:
+                got = flash_kernel.flash_attention_fwd(
+                    q, k, v, causal=causal, window=window)
+                want = attention_plain(q, k, v, causal=causal, window=window)
+                err, ok = within(got, want, TOL[dtype])
+                out[f"flash_{tag}"] = {
                     "max_abs_err": err, "ok": ok,
                     "variant": flash_kernel.variant(dtype, shape[4])}
-            del q, k, v, got, want
+                del got, want
+            back[f"flash_bwd_{tag}"] = flash_bwd_errors(q, k, v, causal,
+                                                        window)
+            del q, k, v
 
     def paged(dtype, shape, lens=None):
         args = paged_case(rng, *shape, dtype, dev, lens)
@@ -1229,14 +1296,22 @@ def phase_attention_kernels(dev) -> dict:
             flash(dtype, shape, [(False, None)])
         if dtype == torch.bfloat16:
             flash(dtype, FLASH_MIXTRAL, [(True, 4096)])
+        flash(dtype, FLASH_MASKED, FLASH_MASKED_MASKS, forward=False,
+              gen=masked_rng)
         for shape in PAGED_CASES:
             paged(dtype, shape)
         for shape, lens in PAGED_EDGE:
             paged(dtype, shape, lens)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    emit(phase5_backward=back)          # before its checks
     for name, r in out.items():
         check(r["ok"], f"phase 5 {name}: kernel within tolerance of plain")
+    for name, r in back.items():
+        check(r["ok"], f"phase 5 {name}: dq, dk, dv within "
+              f"{FLASH_BWD_TOL} of the plain backward and of autograd")
+        check(r["bitwise_repeat"], f"phase 5 {name}: a second backward "
+              "launch gives the same bits")
     return out
 
 
@@ -1339,8 +1414,10 @@ def phase_serving_identity(card_dev: str = "cuda") -> dict:
           "phase 6: sequences demoted, promoted and decoded from the host "
           "tier")
     check(gpu["launches"] == {"paged_attention": 4 * 15 * cfg.num_layers,
-                              "flash_attention": 4 * cfg.num_layers},
-          "phase 6: one kernel launch per layer of each forward on the card")
+                              "flash_attention": 4 * cfg.num_layers,
+                              "flash_attention_bwd": 0},
+          "phase 6: one kernel launch per layer of each forward on the card, "
+          "no backward")
     check(not any(cpu["launches"].values()),
           "phase 6: the CPU run launched no kernel")
     return out
@@ -1753,26 +1830,63 @@ def scan_errors(call, every_lanes: bool = False) -> dict:
     return out
 
 
+def scan_grads_autograd(dt, x, bm, c, a, dy) -> tuple:
+    """The five gradients by autograd through ``ssm_scan_chunked``."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (dt, x, bm, c, a)]
+        return torch.autograd.grad(ssm_scan_chunked(*ins), ins, dy)
+
+
+def scan_bwd_errors(call, dy) -> dict:
+    """The backward kernels on one call against
+    ``selective_scan_fused_bwd_ref`` and autograd through
+    ``ssm_scan_chunked``, each gradient relative to its largest, and a
+    second launch on the same inputs bit for bit."""
+    got = fused_kernel.selective_scan_fused_bwd(*call, dy)
+    again = fused_kernel.selective_scan_fused_bwd(*call, dy)
+    names = ("ddt", "dx", "dB", "dC", "dA")
+    errs = {f"{n}_vs_plain": card_rel_err(x, y) for n, x, y in zip(
+        names, got, selective_scan_fused_bwd_ref(*call, dy))}
+    errs.update({f"{n}_vs_autograd": card_rel_err(x, y) for n, x, y in zip(
+        names, got, scan_grads_autograd(*call, dy))})
+    return {"errors": errs, "ok": all(e <= SCAN_TOL for e in errs.values()),
+            "bitwise_repeat": all(torch.equal(x, y)
+                                  for x, y in zip(got, again))}
+
+
 def phase_scan_kernels(dev) -> dict:
+    """Both scan kernels' forward, and the fused scan's backward, at every
+    case against their plain versions."""
     rng = np.random.default_rng(9)
+    dy_rng = np.random.default_rng(19)
     sms = fused_kernel.sm_count(dev)
-    out = {}
+    out, backs = {}, {}
     for b, t, di, n, mode in ([s + ("model",) for s in SCAN_CASES]
                               + SCAN_EDGES):
-        errs = scan_errors(fused_case(rng, b, t, di, n, dev, mode),
-                           every_lanes=True)
+        call = fused_case(rng, b, t, di, n, dev, mode)
+        errs = scan_errors(call, every_lanes=True)
+        back = scan_bwd_errors(call, randn(dy_rng, (b, t, di),
+                                           torch.float32, dev))
+        del call
         torch.cuda.synchronize()
         name = "x".join(map(str, (b, t, di, n))) + (
             "" if mode == "model" else f"_{mode}")
         out[name] = {k: {"max_abs_err": e, "ok": ok}
                      for k, (e, ok) in errs.items()}
+        backs[name] = back
         out[name]["lanes"] = fused_kernel.plan(b, di, sms).lanes
         v1_plan = scan_kernel.plan(b, di, sms)
         out[name]["v1_plan"] = [v1_plan.channels, v1_plan.stages]
+    emit(phase9_backward=backs)         # before its checks
     for name, r in out.items():
         for k, v in r.items():
             if k not in ("lanes", "v1_plan"):
                 check(v["ok"], f"phase 9 {name} {k}: within {SCAN_TOL}")
+    for name, r in backs.items():
+        check(r["ok"], f"phase 9 {name}: the five gradients within "
+              f"{SCAN_TOL} of the plain backward and of autograd")
+        check(r["bitwise_repeat"], f"phase 9 {name}: a second backward "
+              "launch gives the same bits")
     return out
 
 
@@ -2461,11 +2575,14 @@ def kernel_layers(cfg) -> dict:
 
 
 def train_launches(cfg, steps: int, accum: int, remat: bool = True) -> dict:
-    """Each kernel's launches in ``steps`` train steps: one per layer of
-    each micro-batch's forward, again in its recompute under remat, none
-    in the backward (the Functions' backward is plain PyTorch)."""
-    return {k: n * steps * accum * (1 + remat)
-            for k, n in kernel_layers(cfg).items()}
+    """Each kernel's launches in ``steps`` train steps: the forward kernel
+    once per layer of each micro-batch's forward and again in its
+    recompute under remat; the backward kernels (``<kernel>_bwd``, one
+    launch of their wrapper) once per layer of each micro-batch, from the
+    Functions' backwards."""
+    layers = kernel_layers(cfg)
+    return {**{k: n * steps * accum * (1 + remat) for k, n in layers.items()},
+            **{f"{k}_bwd": n * steps * accum for k, n in layers.items()}}
 
 
 def state_to(state: dict, dev) -> dict:
@@ -2497,7 +2614,8 @@ def train_run(cfg, base: dict, batch: dict, accum: int, dev,
     rec = {"metrics": {"loss": loss, "grad_norm": float(m["grad_norm"]),
                        "lr": float(m["lr"])},
            "seconds": seconds, "launches": model_launches(),
-           "flash_variants": dict(flash_kernel.variant_launches)}
+           "flash_variants": dict(flash_kernel.variant_launches),
+           "flash_bwd_variants": dict(flash_kernel.bwd_variant_launches)}
     first = {f: {n: t.detach().to("cpu", copy=True) for n, t in
                  getattr(state["opt"], f).items()}
              for f in ("master", "mu", "nu")}
@@ -2640,10 +2758,14 @@ def phase_train_identity(card_dev: str = "cuda") -> dict:
             defer(all(launched_now[k] == n for k, n in want.items())
                   and sum(launched_now.values()) == sum(want.values()),
                   f"{tag}: (1 + remat) x micro-batches x layers launches of "
-                  "each kernel, nothing else")
+                  "each forward kernel, micro-batches x layers of each "
+                  "backward, nothing else")
             defer(card_rec["flash_variants"]["simt"]
-                  == want["flash_attention"],
-                  f"{tag}: fp32 flash on the CUDA-core kernel")
+                  == want["flash_attention"]
+                  and card_rec["flash_bwd_variants"]["simt"]
+                  == want["flash_attention_bwd"],
+                  f"{tag}: fp32 flash, forward and backward, on the "
+                  "CUDA-core kernels")
             if name == "hymba-1.5b" and accum == 1:
                 t0 = time.perf_counter()
                 r["adamw_identity"] = adamw_identity(
@@ -2743,15 +2865,20 @@ BACKWARDS = {"flash_attention_backward": (flash_ops.FlashAttention,
                                           "backward"),
              "selective_scan_backward": (scan_ops.SelectiveScanFused,
                                          "backward")}
+# the backward kernels' symbols, by the span that launches them
+BACKWARD_KERNELS = {
+    "flash_attention_backward": ("flash_bwd_dq_kernel",
+                                 "flash_bwd_dkdv_kernel"),
+    "selective_scan_backward": ("selective_scan_fused_bwd_kernel",
+                                "selective_scan_fused_bwd_reduce_kernel")}
 
 
 def profiled_split(fn) -> dict:
     """``fn`` (one train step) under the profiler's CUDA activity and
     ``Spans`` of the two Functions' backwards: device time by operation,
     and split into the two kernels' forward launches, the spans of the
-    Functions' backwards (the plain attention recompute, the chunked
-    scan), all GEMMs (those inside the backward spans included) and the
-    rest outside the spans."""
+    Functions' backwards (each span's backward kernels by symbol beside
+    it), all GEMMs and the rest outside the spans."""
     with Spans(BACKWARDS) as spans:
         ops = device_ops(fn)
     back = spans.summary()
@@ -2764,8 +2891,10 @@ def profiled_split(fn) -> dict:
     fwd = {"flash_fwd": part([o for o in ops if "flash_fwd" in o[0]]),
            "selective_scan_fused": part(
                [o for o in ops if "selective_scan_fused_kernel" in o[0]])}
-    for b in back.values():
+    for name, b in back.items():
         b["share"] = b["device_ms"] / total if total else None
+        b["kernels"] = {sym: part([o for o in ops if sym in o[0]])
+                        for sym in BACKWARD_KERNELS[name]}
     outside = total - sum(b["device_ms"] for b in back.values())
     return {"device_ms": total, "forward_kernels": fwd,
             "backward_spans": back,
@@ -2775,12 +2904,243 @@ def profiled_split(fn) -> dict:
                          "share": ms / total} for key, ms, n in ops[:TOP_OPS]]}
 
 
+class FirstCalls:
+    """Wraps functions, each an attribute of a module: keeps a copy of
+    the arguments of the first call of each window (keyword ``window``,
+    None where absent), and passes every call through."""
+
+    def __init__(self, targets: dict):
+        self.targets = targets
+        self.calls = {name: {} for name in targets}
+        self._orig = {name: getattr(owner, attr)
+                      for name, (owner, attr) in targets.items()}
+
+    def _wrap(self, name: str):
+        orig, kept = self._orig[name], self.calls[name]
+
+        def call(*args, **kw):
+            key = kw.get("window")
+            if key not in kept:
+                kept[key] = (tuple(t.detach().clone() for t in args),
+                             dict(kw))
+            return orig(*args, **kw)
+        return call
+
+    def __enter__(self):
+        for name, (owner, attr) in self.targets.items():
+            setattr(owner, attr, self._wrap(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, (owner, attr) in self.targets.items():
+            setattr(owner, attr, self._orig[name])
+
+
+BWD_WRAPPERS = {"selective_scan_fused_bwd": (fused_kernel,
+                                             "selective_scan_fused_bwd"),
+                "flash_attention_bwd": (flash_kernel, "flash_attention_bwd")}
+BWD_REPLACES = {
+    "selective_scan_fused_bwd": "src/repro/models/layers.py:353",
+    "flash_attention_bwd": "src/repro/kernels/flash_attention/ops.py:42"}
+# per (t, d, n): g 2, dB 2, dC 2, dx 2, ddt 4 (x B + A decay h), dA 2
+SCAN_BWD_FLOPS = 14
+FLASH_BWD_FLOPS = 10          # QK^T, dO V^T, P^T dO, dS^T Q, dS K
+
+
+def scan_bwd_bound(args) -> tuple:
+    """(bytes / HBM rate, flops / CUDA-core rate) in seconds of one
+    backward call (dt, x, B, C, A, dy): dt, x, dy, B, C, A read once,
+    their gradients written once; SCAN_BWD_FLOPS per (t, d, n)."""
+    dt, a = args[0], args[4]
+    b, t, di = dt.shape
+    n = a.shape[1]
+    nbytes = 4 * (5 * b * t * di + 4 * b * t * n + 2 * di * n)
+    return nbytes / HBM_BYTES_PER_S, \
+        SCAN_BWD_FLOPS * b * t * di * n / CUDA_CORE_OPS_PER_S
+
+
+def flash_bwd_bound(args, causal, window) -> tuple:
+    """(bytes / HBM rate, ops / peak rate of the inputs' type) in seconds
+    of one backward call (q, k, v, out, lse, dout): q, out, dout, k, v and
+    lse read once, dq, dk, dv written once; FLASH_BWD_FLOPS per (query
+    head, visible key, head dim), visible as in ``flash_bound``."""
+    q, k, _, _, lse, _ = args
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    seen = float(np.minimum(np.minimum(np.arange(1, sq + 1), skv),
+                            window or skv).sum()) if causal else sq * skv
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+        + 4 * lse.numel()
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 \
+        else CUDA_CORE_OPS_PER_S
+    return nbytes / HBM_BYTES_PER_S, \
+        FLASH_BWD_FLOPS * b * h * d * seen / rate
+
+
+class DispatchLog(TorchDispatchMode):
+    """Every aten operation dispatched in this thread while active, by
+    name: every PyTorch kernel launch passes through the dispatcher, so a
+    plain recompute shows here whatever the profiler records."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.add(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def backward_ops(forward, inputs: tuple, grad: torch.Tensor) -> dict:
+    """One backward through ``forward`` (a differentiable entry point) on
+    copies of ``inputs``, the forward run first and outside: the aten
+    operations its ``Function``'s backward dispatches (run in this thread
+    through the node's ``apply``) and the device operations the profiler
+    records for it (in whole-script runs it has come back with none)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in inputs]
+        out = forward(*ins)
+    log = DispatchLog()
+
+    def run():
+        with log:
+            out.grad_fn.apply(grad)
+    device = device_ops(run)
+    return {"aten_ops": sorted(log.ops),
+            "device_ops": sorted({name for name, _, _ in device})}
+
+
+# aten ops that launch no kernel: allocations, and the detach that
+# unpacking a saved output (flash's out) dispatches
+NO_KERNEL_OPS = ("aten.empty", "aten.detach.")
+
+
+def only_kernels(seen: dict, symbol: str) -> bool:
+    """Whether a backward dispatched no aten op that launches a kernel and
+    launched no device operation but its own kernels (``symbol`` in their
+    names)."""
+    return (all(op.startswith(NO_KERNEL_OPS) for op in seen["aten_ops"])
+            and all(symbol in op for op in seen["device_ops"]))
+
+
+def sdpa_backward(call, causal, window):
+    """(fn, args): the backward of one ``scaled_dot_product_attention``
+    call on the same q, k, v (K/V repeated to the query heads outside the
+    timed call) at ``dout``, its graph kept between calls."""
+    q, k, v, _, _, dout = call
+    fn, (q_, k_, v_, mask) = flash_library((q, k, v, causal, window), False)
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q_, k_, v_)]
+        out = fn(*leaves, mask)
+    return (lambda: torch.autograd.grad(out, leaves, dout,
+                                        retain_graph=True)), ()
+
+
+def phase_train_backward(calls: dict, launched: dict) -> list:
+    """The first backward call of phase 14's loop (the scan's, and
+    flash's of each window) again: checked against the plain backward,
+    timed with CUDA events beside its bound, the plain version and, for
+    flash, ``scaled_dot_product_attention``'s backward; and one backward
+    through each ``Function`` under the profiler: its device operations
+    are the backward kernels and nothing else.  The kernels line's rows
+    for the two backward kernels."""
+    rows = []
+    (scan_args, _), = calls["selective_scan_fused_bwd"].values()
+    got = fused_kernel.selective_scan_fused_bwd(*scan_args)
+    want = selective_scan_fused_bwd_ref(*scan_args)
+    rel = max(card_rel_err(x, y) for x, y in zip(got, want))
+    err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+    del got, want
+    check(rel <= SCAN_TOL, f"phase 14 scan backward within {SCAN_TOL} of "
+          "the plain backward on the loop's first call")
+    scan_ops_seen = backward_ops(scan_ops.selective_scan_fused,
+                                 scan_args[:5], scan_args[5])
+    check(only_kernels(scan_ops_seen, "selective_scan_fused_bwd"),
+          "phase 14: the scan Function's backward launches its backward "
+          "kernels and nothing else")
+    t_bytes, t_ops = scan_bwd_bound(scan_args)
+    sfu_per_s = (fused_kernel.sm_count(scan_args[0].device) * SFU_PER_CLOCK
+                 * max_sm_hz())
+    wrapper = fused_kernel.selective_scan_fused_bwd
+    rows.append({
+        "name": "selective_scan_fused_bwd", "route": "cuda",
+        "source": str(SCAN_SOURCE.relative_to(ROOT)),
+        "replaces": BWD_REPLACES["selective_scan_fused_bwd"],
+        "launches": launched["selective_scan_fused_bwd"],
+        "max_abs_err": err, "max_rel_err": rel, "dtype": "float32",
+        "shape": list(scan_args[0].shape) + [scan_args[4].shape[1]],
+        "ms": cuda_ms(wrapper, [scan_args], 5),
+        "device_ms": bracketed_ms(wrapper, [scan_args], 3),
+        "plain_ms": cuda_ms(selective_scan_fused_bwd_ref, [scan_args], 1),
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_sfu_ms": 1e3 * scan_sfu_bound(scan_args, sfu_per_s),
+        "library_ms": None, "backward_ops": scan_ops_seen})
+    del scan_args
+    torch.cuda.empty_cache()
+    by_window, worst = {}, (0.0, 0.0)
+    wrapper = flash_kernel.flash_attention_bwd
+    for window, (args, kw) in calls["flash_attention_bwd"].items():
+        causal = kw["causal"]
+        got = wrapper(*args, **kw)
+        want = per_kv_head(attention_bwd_ref, *args[:4], args[5], **kw)
+        rel = max(card_rel_err(x, y) for x, y in zip(got, want))
+        err = max(float((x.float() - y.float()).abs().max())
+                  for x, y in zip(got, want))
+        del got, want
+        check(rel <= FLASH_BWD_TOL[args[0].dtype],
+              f"phase 14 flash backward (window {window}) within "
+              f"{FLASH_BWD_TOL[args[0].dtype]} of the plain backward on "
+              "the loop's first call")
+        ops_seen = backward_ops(
+            lambda q, k, v: flash_ops.flash_attention(q, k, v, causal,
+                                                      window),
+            args[:3], args[5])
+        check(only_kernels(ops_seen, "flash_bwd_"),
+              "phase 14: flash's Function backward launches its backward "
+              "kernels and nothing else")
+        t_bytes, t_ops = flash_bwd_bound(args, causal, window)
+        lib_fn, lib_args = sdpa_backward(args, causal, window)
+        by_window[str(window)] = {
+            "shape": list(args[0].shape) + [args[1].shape[1]],
+            "dtype": str(args[0].dtype).split(".")[1],
+            "causal": causal, "window": window,
+            "variant": flash_kernel.bwd_variant(args[0].dtype,
+                                                args[0].shape[3]),
+            "max_abs_err": err, "max_rel_err": rel,
+            "ms": cuda_ms(lambda: wrapper(*args, **kw), [()], 5),
+            "device_ms": bracketed_ms(lambda: wrapper(*args, **kw), [()],
+                                      3),
+            "plain_ms": cuda_ms(lambda: per_kv_head(
+                attention_bwd_ref, *args[:4], args[5], **kw), [()], 1),
+            "library_ms": cuda_ms(lib_fn, [lib_args], 5),
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "backward_ops": ops_seen}
+        worst = (max(worst[0], err), max(worst[1], rel))
+        del lib_fn, lib_args
+        torch.cuda.empty_cache()
+    first = next(iter(by_window.values()))
+    rows.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": str(flash_kernel.SOURCE.relative_to(ROOT)),
+        "replaces": BWD_REPLACES["flash_attention_bwd"],
+        "launches": launched["flash_attention_bwd"],
+        "max_abs_err": worst[0], "max_rel_err": worst[1],
+        "dtype": first["dtype"],
+        **{k: first[k] for k in ("ms", "device_ms", "plain_ms",
+                                 "library_ms", "bound_ms", "bound_by")},
+        "first_call_window": first["window"], "by_window": by_window})
+    return rows
+
+
 def phase_train_main(dev: str = "cuda") -> dict:
     """Phase 14: Hymba-1.5B at full width and depth trains through
     ``train_loop`` (bf16 parameters, fp32 masters and moments, remat on,
     random weights from seed 0, SyntheticLM data), the launch counts
     zeroed just before and read just after; then one more step of the
-    same state under the profiler."""
+    same state under the profiler; then the loop's first call of each
+    backward kernel again (``phase_train_backward``)."""
     cfg = get_config(TRAIN_MAIN)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2790,12 +3150,15 @@ def phase_train_main(dev: str = "cuda") -> dict:
         stamps.append((time.perf_counter(), msg))
     reset_model_launches()
     t0 = time.perf_counter()
-    out = train_loop(cfg, steps=TRAIN_MAIN_STEPS, batch=TRAIN_MAIN_BATCH,
-                     seq=TRAIN_MAIN_SEQ, log_every=1, log=log, device=dev)
-    torch.cuda.synchronize()
+    with FirstCalls(BWD_WRAPPERS) as first:
+        out = train_loop(cfg, steps=TRAIN_MAIN_STEPS,
+                         batch=TRAIN_MAIN_BATCH, seq=TRAIN_MAIN_SEQ,
+                         log_every=1, log=log, device=dev)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = model_launches()
     variants = dict(flash_kernel.variant_launches)
+    bwd_variants = dict(flash_kernel.bwd_variant_launches)
     peak = torch.cuda.max_memory_allocated()
     gnorms = [float(msg.split("gnorm ")[1]) for _, msg in stamps]
     times = [t for t, _ in stamps]
@@ -2814,7 +3177,8 @@ def phase_train_main(dev: str = "cuda") -> dict:
            "tokens_per_s_2_on": tokens * (len(times) - 1) / later,
            "losses": [loss for _, loss in out["losses"]],
            "grad_norms": gnorms, "launches": launched,
-           "flash_variants": variants, "expected_launches": want,
+           "flash_variants": variants, "flash_bwd_variants": bwd_variants,
+           "expected_launches": want,
            "peak_device_gib": peak / 2**30,
            "param_dtypes": sorted({str(p.dtype) for p in
                                    state["model"].parameters()})}
@@ -2825,10 +3189,13 @@ def phase_train_main(dev: str = "cuda") -> dict:
           "phase 14: finite losses and grad norms")
     check(all(launched[k] == n for k, n in want.items())
           and sum(launched.values()) == sum(want.values()),
-          "phase 14: 2 x 32 flash and 2 x 32 fused-scan launches a step, "
-          "nothing else")
-    check(variants == {"mma": want["flash_attention"], "simt": 0},
-          "phase 14: every flash launch on the tensor-core kernel")
+          "phase 14: 2 x 32 flash and 2 x 32 fused-scan forward launches "
+          "and 32 of each backward a step, nothing else")
+    check(variants == {"mma": want["flash_attention"], "simt": 0}
+          and bwd_variants == {"mma": want["flash_attention_bwd"],
+                               "simt": 0},
+          "phase 14: every flash launch, forward and backward, on the "
+          "tensor-core kernels")
     step = make_train_step(cfg, TrainConfig(total_steps=TRAIN_MAIN_STEPS),
                            ParallelConfig(seq_shard_activations=False))
     batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
@@ -2845,6 +3212,9 @@ def phase_train_main(dev: str = "cuda") -> dict:
     split["busy_share"] = split["device_ms"] / (1e3 * rec["mean_step_s_2_on"])
     rec["profiled_step"] = split
     del out, state, holder, batch
+    torch.cuda.empty_cache()
+    rec["backward_kernels"] = phase_train_backward(first.calls, launched)
+    del first
     torch.cuda.empty_cache()
     return rec
 
@@ -2971,7 +3341,8 @@ def family_train_identity(card_dev, defer) -> dict:
     config on the card and on the CPU from one fp32 ``init_state``: loss
     and grad norm within FAMILY_TOL, every parameter with a gradient on
     the CPU with one on the card (the fp32 router included), (1 + remat)
-    flash launches per attention call of the forward."""
+    flash forward launches per attention call of the forward and one
+    backward launch per call."""
     out = {}
     for name in FAMILY_TRAIN:
         cfg = get_config(name).smoke()
@@ -2987,7 +3358,8 @@ def family_train_identity(card_dev, defer) -> dict:
                 if cpu["mu"][n].any() and not card["mu"][n].any()]
         zero_card = [n for n in card["mu"] if not card["mu"][n].any()]
         routers = [n for n in card["mu"] if n.endswith("moe.router")]
-        want = 2 * sum(flash_per_forward(cfg).values())
+        calls = sum(flash_per_forward(cfg).values())
+        want = 2 * calls
         launched = card_rec["launches"]
         out[name] = r = {
             "layers": cfg.num_layers, "encoder_layers": cfg.encoder_layers,
@@ -2997,7 +3369,7 @@ def family_train_identity(card_dev, defer) -> dict:
             "params_without_grad_on_card": zero_card,
             "routers_with_grad_on_card": sum(bool(card["mu"][n].any())
                                              for n in routers),
-            "expected_flash": want}
+            "expected_flash": want, "expected_flash_bwd": calls}
         tag = f"phase 15 {name} smoke train step"
         defer(all(e <= FAMILY_TOL for e in rel.values()),
               f"{tag}: loss and grad norm within 1e-4 of the CPU's")
@@ -3007,9 +3379,10 @@ def family_train_identity(card_dev, defer) -> dict:
               and len(routers) == (cfg.num_layers if cfg.is_moe else 0),
               f"{tag}: the fp32 router of every MoE layer has a gradient")
         defer(launched["flash_attention"] == want
-              and sum(launched.values()) == want,
-              f"{tag}: (1 + remat) flash launches per attention call, "
-              "nothing else")
+              and launched["flash_attention_bwd"] == calls
+              and sum(launched.values()) == want + calls,
+              f"{tag}: (1 + remat) flash forward launches and one backward "
+              "launch per attention call, nothing else")
         defer(not any(cpu_rec["launches"].values()),
               f"{tag}: the CPU run launched no kernel")
     return out
@@ -4159,6 +4532,7 @@ def loop_run(cfg, dev, steps: int, ckpt_dir=None) -> tuple:
            "tokens_per_s_2_on": tokens * (len(stamps) - 1) / later,
            "metrics": out["metrics"], "launches": model_launches(),
            "flash_variants": dict(flash_kernel.variant_launches),
+           "flash_bwd_variants": dict(flash_kernel.bwd_variant_launches),
            "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}
     return out, rec
 
@@ -4192,7 +4566,8 @@ def phase_sharded_train(dev: str = "cuda") -> dict:
     seed, state and batches: every step's loss, grad norm and lr within
     1e-4, the final moments within 1e-4 of each tensor's largest and the
     parameters within one bf16 step; the flash launches of each loop
-    counted (two a layer a step: the forward and its recompute); step
+    counted (two forward a layer a step: the forward and its recompute;
+    one backward); step
     time, tokens/s, peak memory and, from one more profiled step of the
     sharded state, the busy share.  Then both loops at the smoke config,
     each saving its last step: the files byte-identical, and each
@@ -4284,11 +4659,14 @@ def phase_sharded_train(dev: str = "cuda") -> dict:
     for name, r in (("one-device", plain), ("sharded", sharded)):
         check(r["launches"] == {**{k: 0 for k in r["launches"]}, **want},
               f"phase 19a: the {name} loop launched flash twice a layer a "
-              "step (forward and recompute) and nothing else")
+              "step (forward and recompute), its backward once, and "
+              "nothing else")
         check(r["flash_variants"] == {"mma": want["flash_attention"],
-                                      "simt": 0},
-              f"phase 19a: the {name} loop's flash on the tensor-core "
-              "kernel")
+                                      "simt": 0}
+              and r["flash_bwd_variants"] == {
+                  "mma": want["flash_attention_bwd"], "simt": 0},
+              f"phase 19a: the {name} loop's flash, forward and backward, "
+              "on the tensor-core kernels")
     check(np.isfinite(rec["profiled_step"]["loss"]),
           "phase 19a: the profiled sharded step's loss is finite")
     ck = rec["checkpoint"]
@@ -4323,9 +4701,16 @@ def phase_dryrun_cell() -> dict:
 
 
 def merge_sharded(kernels: list, out: dict) -> None:
-    """Count phase 19a's sharded-loop flash launches in the flash row's
-    ``launches``, ``launches_by_variant`` and ``by_path``."""
+    """Count phase 19a's sharded-loop flash launches in the flash rows'
+    ``launches``, ``launches_by_variant`` and ``by_path``: the forward's
+    and the backward's."""
     for row in kernels:
+        if row["name"] == "flash_attention_bwd":
+            n = out["sharded"]["launches"]["flash_attention_bwd"]
+            row["by_path"] = {
+                "Hymba-1.5B train loop (phase 14)": row["launches"],
+                "Qwen3-1.7B train loop on DTensor state (phase 19)": n}
+            row["launches"] += n
         if row["name"] != "flash_attention":
             continue
         n = out["sharded"]["launches"]["flash_attention"]
@@ -4471,10 +4856,12 @@ def phase_dense_identity(card_dev: str = "cuda") -> dict:
               "host tier and decoded from there")
         check(e["launches"][card_dev] == {
                   "paged_attention": n * (forwards - DENSE_ENGINE_REQUESTS),
-                  "flash_attention": n * DENSE_ENGINE_REQUESTS}
+                  "flash_attention": n * DENSE_ENGINE_REQUESTS,
+                  "flash_attention_bwd": 0}
               and e["paged_groups"] == [cfg.num_heads // cfg.num_kv_heads],
               f"{tag} engine: one paged launch per layer of each decode "
-              "step, all at G 48, one flash per layer of each prefill")
+              "step, all at G 48, one flash per layer of each prefill, no "
+              "backward")
         check(not any(e["launches"]["cpu"].values()),
               f"{tag} engine: the CPU run launched no kernel")
     return out
@@ -4676,6 +5063,7 @@ def main() -> int:
         merge_training(kernels, {k: train_main["launches"][k] for k in
                                  ("flash_attention", "selective_scan_fused")},
                        train_main["flash_variants"])
+        kernels += train_main["backward_kernels"]
     if 15 in phases:
         phase_family_identity()
         emit(phase15_seconds=seconds(), card=card)

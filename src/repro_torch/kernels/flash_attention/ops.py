@@ -7,12 +7,16 @@ plain PyTorch version in ``ref``.  Nothing falls back from one to the
 other.
 
 ``flash_attention`` is an autograd ``Function``, the reference's custom
-VJP (``_fwd``/``_bwd`` of its ``ops.py``): the forward saves only (q, k,
-v), and the backward recomputes attention through the dense
-``attention_ref`` under autograd and returns its gradients, so no
-softmax weights are stored between the passes.  The kernel wrapper itself
-refuses inputs that require a gradient under grad mode, so no path
-reaches it without this backward.
+VJP (``_fwd``/``_bwd`` of its ``ops.py``); no softmax weights are stored
+between the passes.  On CUDA tensors that need a gradient the forward
+also asks the kernel for each row's log-sum-exp and saves (q, k, v, out,
+lse), and the backward launches the backward kernels
+(``kernel.flash_attention_bwd``) and nothing else; a forward that needs
+no gradient (inference) writes no log-sum-exp.  On CPU tensors the
+forward saves (q, k, v) and the backward recomputes attention through
+the dense ``attention_ref`` under autograd, the reference's own form.
+The kernel wrapper itself refuses inputs that require a gradient under
+grad mode, so no path reaches it without this backward.
 """
 from __future__ import annotations
 
@@ -36,17 +40,30 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class FlashAttention(torch.autograd.Function):
     """Forward through the kernel (or the plain version on the CPU);
-    backward by recomputing ``attention_ref``."""
+    backward through the backward kernels (or by recomputing
+    ``attention_ref`` on the CPU)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
-        ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
+        if q.device.type == "cuda" and any(ctx.needs_input_grad[:3]):
+            out, lse = kernel.flash_attention_fwd(
+                q, k, v, causal=causal, window=window, with_lse=True)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
+        ctx.save_for_backward(q, k, v)
         return _forward(q, k, v, causal, window)
 
     @staticmethod
     def backward(ctx, grad):
-        q, k, v = ctx.saved_tensors
+        saved = ctx.saved_tensors      # once: checkpoint unpacks it once
+        if saved[0].device.type == "cuda":
+            q, k, v, out, lse = saved
+            dq, dk, dv = kernel.flash_attention_bwd(
+                q, k, v, out, lse, grad, causal=ctx.causal,
+                window=ctx.window)
+            return dq, dk, dv, None, None
+        q, k, v = saved
         with torch.enable_grad():
             qkv = [t.detach().requires_grad_() for t in (q, k, v)]
             out = attention_ref(*qkv, causal=ctx.causal, window=ctx.window)

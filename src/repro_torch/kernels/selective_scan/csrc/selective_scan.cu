@@ -93,6 +93,46 @@
 // cp.async copies that arrive on the `full` mbarrier as they land; the
 // ring is zeroed once, so states past N read 0 from bx and C.
 //
+// The fused scan's backward (the training step of every Mamba layer).  It
+// replaces no Pallas kernel: the reference trains through its jnp chunked
+// scan (src/repro/models/layers.py, _ssm_scan_chunked, under jax.vjp),
+// which XLA compiles for the TPU.  It computes, from the forward's inputs
+// and dy, with decay_t = exp(dt_t A) and g_T = 0,
+//
+//   g_t   = dy_t C_t + decay_{t+1} g_{t+1}
+//   dx_t  = dt_t sum_n g_t B_t       ddt_t = sum_n g_t (x_t B_t + A decay_t
+//                                                        h_{t-1})
+//   dB_t  = sum_d g_t dt_t x_t       dC_t  = sum_d dy_t h_t
+//   dA    = sum_{b,t} g_t dt_t decay_t h_{t-1}
+//
+// What bounds it: bytes, like the forward: dt, x and dy read and ddt and
+// dx written, 20 bytes a (t, d), against one exponential a (t, d, n) if the
+// states were kept; but the states are not kept, so each is recomputed.
+// The design (selective_scan_fused_bwd_kernel, 4 lanes a channel, 32
+// channels a block of one batch row, as the forward lays out its lanes):
+//   1. Pass 1 runs the recurrence forward over T and stores the state at
+//      the end of every 32-step chunk (scratch [B, ceil(T / 32), di, 16]).
+//   2. Pass 2 walks the chunks back: it recomputes the chunk's 32 states
+//      from the state before it into shared memory, each thread its own
+//      (the forward's decay 0.5 ex2(dt A log2(e) + 1), so the states are
+//      the forward's bit for bit), then runs g back through them.
+//   3. dx and ddt are lane sums over the channel's states: one butterfly
+//      every 4 steps, as the forward's y.  dB and dC are sums over the
+//      block's channels: a butterfly over the warp's 8 channels every step
+//      leaves each lane one of the 32 (dB, dC) values, then the 4 warps'
+//      are added in shared memory into per-block partials [B, di blocks,
+//      T, 32]; dA stays in registers over all of T, a partial per batch
+//      row [B, di, 16].
+//   4. Deterministic: no atomics; a second small kernel
+//      (selective_scan_fused_bwd_reduce_kernel) adds the partials over the
+//      di blocks and the batch in a fixed order, so a rerun gives the same
+//      bits (the sharded train loop's checkpoints are held byte for byte
+//      against the one-device loop's).
+// It costs three exponentials a (t, d, n) (pass 1, the recompute, and the
+// decay in the walk back) and a 7-shuffle butterfly a step, at two blocks
+// an SM (96 KiB of shared memory each): see PERF.md for its time against
+// the byte bound.
+//
 // The launchers allocate nothing and do not synchronise; they launch on
 // the caller's stream and return cudaGetLastError().
 
@@ -520,6 +560,286 @@ __global__ void __launch_bounds__(kV1MaxThreads, 1)
   }
 }
 
+// ---------------------------------------------------------- backward --
+constexpr int kBwdLanes = 4;                          // lanes a channel
+constexpr int kBwdStates = kMaxN / kBwdLanes;         // states a lane
+constexpr int kBwdCh = kFusedThreads / kBwdLanes;     // channels a block
+constexpr int kBwdChunk = 32;                         // steps a chunk
+constexpr int kBwdWarps = kFusedThreads / 32;
+constexpr int kBC = 2 * kMaxN;                        // dB then dC, a step
+
+struct BwdSmem {
+  float dt[kBwdChunk][kBwdCh];
+  float x[kBwdChunk][kBwdCh];
+  float dy[kBwdChunk][kBwdCh];
+  float b[kBwdChunk][kMaxN];
+  float c[kBwdChunk][kMaxN];
+  float h[kBwdChunk][kBwdStates][kFusedThreads];  // each thread its own
+  float red[kBwdWarps][kBwdChunk][kBC];           // a warp's dB, dC sums
+};
+
+// The decay of the fused kernel, bit for bit: 0.5 * ex2(dt A log2(e) + 1).
+__device__ __forceinline__ float fused_decay(float dtv, float a2) {
+  return 0.5f * ex2(fmaf(dtv, a2, 1.f));
+}
+
+// Sum each of a lane's kV values over the kV channels of its warp (lanes
+// kL apart): the lane of channel `chw` returns the whole sum of value chw
+// (kV - 1 shuffles, halving the values at each of log2(kV) levels).
+template <int kL>
+__device__ __forceinline__ float reduce_scatter_channels(
+    float (&v)[32 / kL], int chw) {
+  constexpr int kV = 32 / kL;
+#pragma unroll
+  for (int half = kV / 2; half >= 1; half /= 2) {
+    const bool up = chw & half;
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const float send = up ? v[i] : v[i + half];
+      const float keep = up ? v[i + half] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, half * kL);
+    }
+  }
+  return v[0];
+}
+
+// One block: kBwdCh channels d0 .. of batch row b over all of T, 4 lanes
+// a channel.  Pass 1 runs the recurrence forward and keeps the state at
+// the end of every chunk but the last in hbuf [B][chunks][di][16].  Pass
+// 2 walks the chunks back: it recomputes the chunk's states from the
+// state before it into shared memory (each thread its own), then runs
+//   g_t = dy_t C_t + decay_{t+1} g_{t+1}
+// back through them, with per step (t, d)
+//   dx = dt sum_n g B          ddt = sum_n g (x B + A decay h_{t-1})
+// (a butterfly over the channel's lanes every 4 steps), and per (t, n)
+// the block's sums over its channels of dB = g dt x and dC = dy h_t (a
+// butterfly over the warp's channels every step, then over the warps in
+// shared memory) into part_bc [B][di blocks][T][32]; dA = sum_t g dt
+// decay h_{t-1} stays in registers until the end, into part_a
+// [B][di][16].  No atomics: the reduce kernel sums the partials in a
+// fixed order.  kVec: the inputs are copied 16 bytes at a time.
+template <bool kVec>
+__global__ void __launch_bounds__(kFusedThreads)
+    selective_scan_fused_bwd_kernel(
+        const float* __restrict__ dt, const float* __restrict__ x,
+        const float* __restrict__ bm, const float* __restrict__ c,
+        const float* __restrict__ a, const float* __restrict__ dy,
+        float* __restrict__ hbuf, float* __restrict__ ddt,
+        float* __restrict__ dx, float* __restrict__ part_bc,
+        float* __restrict__ part_a, int t_len, int di, int n) {
+  constexpr int kL = kBwdLanes, kS = kBwdStates, kK = kBwdChunk;
+  constexpr int kCh = kBwdCh;
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  BwdSmem& sm = *reinterpret_cast<BwdSmem*>(bwd_smem);
+
+  const int b = blockIdx.y;
+  const int d0 = blockIdx.x * kCh;
+  const int tid = threadIdx.x;
+  const int ch = tid / kL;
+  const int lane = tid % kL;
+  const int warp = tid / 32;
+  const int chw = (tid % 32) / kL;              // channel within the warp
+  const int d = d0 + ch;
+  const bool live = d < di;
+  const size_t row0 = static_cast<size_t>(b) * t_len;
+  const int chunks = (t_len + kK - 1) / kK;
+
+  float av[kS], a2[kS];
+#pragma unroll
+  for (int j = 0; j < kS; ++j) {
+    const int s = lane * kS + j;
+    av[j] = (live && s < n) ? a[static_cast<size_t>(d) * n + s] : 0.f;
+    a2[j] = av[j] * kLog2e;
+  }
+
+  // Chunk k into shared memory (dt, x, B; with `grads` also dy and C),
+  // steps past T and channels past di zero-filled; one commit group.
+  auto stage = [&](int k, bool grads) {
+    const int t0 = k * kK;
+    if constexpr (kVec) {
+      constexpr int kQ = kCh / 4;
+      for (int i = tid; i < kK * kQ; i += kFusedThreads) {
+        const int tt = i / kQ, q = (i % kQ) * 4;
+        const bool ok = t0 + tt < t_len && d0 + q < di;
+        const size_t g = ok ? (row0 + t0 + tt) * di + d0 + q : 0;
+        cp_async16(&sm.dt[tt][q], dt + g, ok ? 16 : 0);
+        cp_async16(&sm.x[tt][q], x + g, ok ? 16 : 0);
+        if (grads) cp_async16(&sm.dy[tt][q], dy + g, ok ? 16 : 0);
+      }
+      for (int i = tid; i < kK * 4; i += kFusedThreads) {
+        const int tt = i / 4, q = (i % 4) * 4;
+        const bool ok = t0 + tt < t_len;
+        const size_t g = ok ? (row0 + t0 + tt) * kMaxN + q : 0;
+        cp_async16(&sm.b[tt][q], bm + g, ok ? 16 : 0);
+        if (grads) cp_async16(&sm.c[tt][q], c + g, ok ? 16 : 0);
+      }
+    } else {
+      for (int i = tid; i < kK * kCh; i += kFusedThreads) {
+        const int tt = i / kCh, cc = i % kCh;
+        const bool ok = t0 + tt < t_len && d0 + cc < di;
+        const size_t g = ok ? (row0 + t0 + tt) * di + d0 + cc : 0;
+        cp_async4(&sm.dt[tt][cc], dt + g, ok ? 4 : 0);
+        cp_async4(&sm.x[tt][cc], x + g, ok ? 4 : 0);
+        if (grads) cp_async4(&sm.dy[tt][cc], dy + g, ok ? 4 : 0);
+      }
+      for (int i = tid; i < kK * kMaxN; i += kFusedThreads) {
+        const int tt = i / kMaxN, s = i % kMaxN;
+        const bool ok = t0 + tt < t_len && s < n;
+        const size_t g = ok ? (row0 + t0 + tt) * n + s : 0;
+        cp_async4(&sm.b[tt][s], bm + g, ok ? 4 : 0);
+        if (grads) cp_async4(&sm.c[tt][s], c + g, ok ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+  // this lane's kS states of channel d at the end of chunk k
+  auto hrow = [&](int k) {
+    return reinterpret_cast<float4*>(
+        hbuf + ((static_cast<size_t>(b) * chunks + k) * di + d) * kMaxN +
+        lane * kS);
+  };
+  // steps tt .. of the chunk in shared memory from the state h
+  auto advance = [&](float (&h)[kS], int tt) {
+    const float dtv = sm.dt[tt][ch];
+    const float dtx = dtv * sm.x[tt][ch];
+    const float4 bq = *reinterpret_cast<const float4*>(&sm.b[tt][lane * kS]);
+    const float bj[kS] = {bq.x, bq.y, bq.z, bq.w};
+#pragma unroll
+    for (int j = 0; j < kS; ++j)
+      h[j] = fmaf(h[j], fused_decay(dtv, a2[j]), dtx * bj[j]);
+  };
+
+  // pass 1: the state at the end of every chunk but the last
+  float h[kS];
+#pragma unroll
+  for (int j = 0; j < kS; ++j) h[j] = 0.f;
+  for (int k = 0; k + 1 < chunks; ++k) {
+    stage(k, false);
+    cp_async_wait_all();
+    __syncthreads();
+    for (int tt = 0; tt < kK; ++tt) advance(h, tt);
+    if (live) *hrow(k) = make_float4(h[0], h[1], h[2], h[3]);
+    __syncthreads();                   // every thread done with chunk k
+  }
+
+  // pass 2: the chunks back
+  float gc[kS], da[kS];                // decay_{t+1} g_{t+1}; dA's sums
+#pragma unroll
+  for (int j = 0; j < kS; ++j) gc[j] = da[j] = 0.f;
+  for (int k = chunks - 1; k >= 0; --k) {
+    stage(k, true);
+    float h0[kS] = {0.f, 0.f, 0.f, 0.f};
+    if (k > 0 && live) {
+      const float4 hv = *hrow(k - 1);
+      h0[0] = hv.x, h0[1] = hv.y, h0[2] = hv.z, h0[3] = hv.w;
+    }
+    cp_async_wait_all();
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kS; ++j) h[j] = h0[j];
+    for (int tt = 0; tt < kK; ++tt) {
+      advance(h, tt);
+#pragma unroll
+      for (int j = 0; j < kS; ++j) sm.h[tt][j][tid] = h[j];
+    }
+    for (int grp = kK - kL; grp >= 0; grp -= kL) {
+      float pdx[kL], pddt[kL];
+#pragma unroll
+      for (int w = kL - 1; w >= 0; --w) {
+        const int tt = grp + w;
+        const float dtv = sm.dt[tt][ch];
+        const float xv = sm.x[tt][ch];
+        const float dyv = sm.dy[tt][ch];
+        const float dtx = dtv * xv;
+        const float4 bq =
+            *reinterpret_cast<const float4*>(&sm.b[tt][lane * kS]);
+        const float4 cq =
+            *reinterpret_cast<const float4*>(&sm.c[tt][lane * kS]);
+        const float bj[kS] = {bq.x, bq.y, bq.z, bq.w};
+        const float cj[kS] = {cq.x, cq.y, cq.z, cq.w};
+        float gb = 0.f, gah = 0.f;
+        float vals[2 * kS];
+#pragma unroll
+        for (int j = 0; j < kS; ++j) {
+          const float hp = tt > 0 ? sm.h[tt - 1][j][tid] : h0[j];
+          const float dec = fused_decay(dtv, a2[j]);
+          const float g = fmaf(dyv, cj[j], gc[j]);
+          const float hd = dec * hp;
+          gb = fmaf(g, bj[j], gb);
+          gah = fmaf(g * av[j], hd, gah);
+          da[j] = fmaf(g * dtv, hd, da[j]);
+          vals[j] = g * dtx;
+          vals[kS + j] = dyv * sm.h[tt][j][tid];
+          gc[j] = dec * g;
+        }
+        pdx[w] = dtv * gb;
+        pddt[w] = fmaf(xv, gb, gah);
+        const float r = reduce_scatter_channels<kL>(vals, chw);
+        sm.red[warp][tt][chw < kS ? lane * kS + chw
+                                  : kMaxN + lane * kS + chw - kS] = r;
+      }
+      const float dxv = reduce_scatter<kL>(pdx, lane);
+      const float ddtv = reduce_scatter<kL>(pddt, lane);
+      const int t = k * kK + grp + lane;
+      if (live && t < t_len) {
+        dx[(row0 + t) * di + d] = dxv;
+        ddt[(row0 + t) * di + d] = ddtv;
+      }
+    }
+    __syncthreads();                   // every warp's sums are in red
+    for (int i = tid; i < kK * kBC; i += kFusedThreads) {
+      const int tt = i / kBC, v = i % kBC;
+      const int t = k * kK + tt;
+      if (t >= t_len) continue;
+      float sum = sm.red[0][tt][v];
+#pragma unroll
+      for (int w = 1; w < kBwdWarps; ++w) sum += sm.red[w][tt][v];
+      part_bc[((static_cast<size_t>(b) * gridDim.x + blockIdx.x) * t_len +
+               t) * kBC + v] = sum;
+    }
+    // the next chunk's stage writes dt .. c, not red, and its barrier
+    // comes before anything writes red again
+  }
+  if (live)
+    *reinterpret_cast<float4*>(
+        part_a + (static_cast<size_t>(b) * di + d) * kMaxN + lane * kS) =
+        make_float4(da[0], da[1], da[2], da[3]);
+}
+
+// dB and dC [B][T][N]: the sums of part_bc over the di blocks in order;
+// dA [di][N]: the sums of part_a over the batch in order.  One thread an
+// output.
+__global__ void selective_scan_fused_bwd_reduce_kernel(
+    const float* __restrict__ part_bc, const float* __restrict__ part_a,
+    float* __restrict__ dbm, float* __restrict__ dc, float* __restrict__ da,
+    int bsz, int t_len, int di, int n, int blocks) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  const long long nbc = static_cast<long long>(bsz) * t_len * n;
+  if (i < 2 * nbc) {
+    const int which = i >= nbc;                  // 0: dB, 1: dC
+    const long long r = i - which * nbc;
+    const int s = static_cast<int>(r % n);
+    const long long bt = r / n;
+    const int t = static_cast<int>(bt % t_len);
+    const long long bb = bt / t_len;
+    const float* p = part_bc + (bb * blocks * t_len + t) * kBC +
+                     which * kMaxN + s;
+    float sum = 0.f;
+    for (int k = 0; k < blocks; ++k)
+      sum += p[static_cast<size_t>(k) * t_len * kBC];
+    (which ? dc : dbm)[r] = sum;
+  } else if (i < 2 * nbc + static_cast<long long>(di) * n) {
+    const long long r = i - 2 * nbc;
+    const int s = static_cast<int>(r % n);
+    const long long dd = r / n;
+    float sum = 0.f;
+    for (int bb = 0; bb < bsz; ++bb)
+      sum += part_a[(static_cast<size_t>(bb) * di + dd) * kMaxN + s];
+    da[r] = sum;
+  }
+}
+
 dim3 grid_of(int b, int di, int channels) {
   return dim3((di + channels - 1) / channels, b);
 }
@@ -596,5 +916,47 @@ extern "C" int selective_scan_fused(const void* dt, const void* x,
     launch_fused<4>(dtf, xf, bf, cf, af, yf, b, t, di, n, vec, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fused scan's backward: ddt, dx [B, T, di], dB, dC [B, T, N] and dA
+// [di, N] from the forward's inputs and dy [B, T, di], all fp32 and
+// contiguous, 1 <= N <= 16, B <= 65535, T and di >= 1 (checked by the
+// Python wrapper, which also allocates the scratch: hbuf [B, ceil(T /
+// 32), di, 16], part_bc [B, ceil(di / 32), T, 32], part_a [B, di, 16]).
+// Two launches on the stream: the scan, then the fixed-order sums.
+extern "C" int selective_scan_fused_bwd(
+    const void* dt, const void* x, const void* bm, const void* c,
+    const void* a, const void* dy, void* hbuf, void* part_bc, void* part_a,
+    void* ddt, void* dx, void* dbm, void* dc, void* da, int b, int t, int di,
+    int n, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = di % 4 == 0 && n == kMaxN && aligned16(dt) &&
+                   aligned16(x) && aligned16(bm) && aligned16(c) &&
+                   aligned16(dy);
+  auto* kernel = vec ? selective_scan_fused_bwd_kernel<true>
+                     : selective_scan_fused_bwd_kernel<false>;
+  const int smem = static_cast<int>(sizeof(BwdSmem));
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid = grid_of(b, di, kBwdCh);
+  kernel<<<grid, kFusedThreads, smem, s>>>(
+      static_cast<const float*>(dt), static_cast<const float*>(x),
+      static_cast<const float*>(bm), static_cast<const float*>(c),
+      static_cast<const float*>(a), static_cast<const float*>(dy),
+      static_cast<float*>(hbuf), static_cast<float*>(ddt),
+      static_cast<float*>(dx), static_cast<float*>(part_bc),
+      static_cast<float*>(part_a), t, di, n);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long total = 2LL * b * t * n + static_cast<long long>(di) * n;
+  constexpr int kReduceThreads = 256;
+  selective_scan_fused_bwd_reduce_kernel<<<
+      static_cast<unsigned>((total + kReduceThreads - 1) / kReduceThreads),
+      kReduceThreads, 0, s>>>(
+      static_cast<const float*>(part_bc), static_cast<const float*>(part_a),
+      static_cast<float*>(dbm), static_cast<float*>(dc),
+      static_cast<float*>(da), b, t, di, n, static_cast<int>(grid.x));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,13 +1,24 @@
-"""Launch the CUDA fused selective scan kernel (``csrc/selective_scan.cu``,
-built and bound by ``selective_scan.py``), which forms dt * x * B itself.
+"""Launch the CUDA fused selective scan kernel and its backward
+(``csrc/selective_scan.cu``, built and bound by ``selective_scan.py``);
+the forward forms dt * x * B itself.
 
-The wrapper takes CUDA fp32 contiguous tensors only, checks their shapes,
-refuses inputs that require a gradient under grad mode
-(``ops.selective_scan_fused`` is the differentiable entry point), picks the launch's shape with ``plan`` (a plain function of B, di and the
-card's SM count; ``shape`` states it for given lanes a channel),
-allocates the output with ``torch.empty``, launches on the current stream
-without synchronising, and raises if the launch was refused.
-``launches`` counts its kernel launches.
+The forward wrapper takes CUDA fp32 contiguous tensors only, checks their
+shapes, refuses inputs that require a gradient under grad mode
+(``ops.selective_scan_fused`` is the differentiable entry point), picks
+the launch's shape with ``plan`` (a plain function of B, di and the card's
+SM count; ``shape`` states it for given lanes a channel), allocates the
+output with ``torch.empty``, launches on the current stream without
+synchronising, and raises if the launch was refused.
+
+``selective_scan_fused_bwd`` is the backward that the ``Function``
+launches on the card: the same checks, then the gradients of dt, x, B, C
+and A from the forward's inputs and dy, deterministic (no atomics: the
+scan writes per-block partial sums of dB, dC and dA into scratch that a
+second kernel adds in a fixed order).  Its launch is fixed: 32 channels a
+block (``BWD_CHANNELS``, 4 lanes a channel), 32-step chunks
+(``BWD_CHUNK``); ``bwd_scratch`` states the scratch it allocates.
+``launches`` counts one launch of each wrapper (the backward's two
+kernels count once).
 """
 from __future__ import annotations
 
@@ -16,8 +27,8 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from .. import _build
-from .selective_scan import (MAX_BATCH, check_args, load, scan_dims,
-                             sm_count)
+from .selective_scan import (MAX_BATCH, MAX_STATE, check_args, load,
+                             scan_dims, sm_count)
 
 THREADS = 128           # a block's threads (kFusedThreads)
 CHUNK = 32              # steps a shared-memory buffer holds (kFusedChunk)
@@ -26,7 +37,11 @@ LANES = (2, 4)          # lanes a channel the kernel is built for
 # for each of its four schedulers) take the launch; below it, the most
 WARPS_PER_SM = 4
 
-launches: Dict[str, int] = {"selective_scan_fused": 0}
+BWD_CHANNELS = 32       # the backward's channels a block (kBwdCh)
+BWD_CHUNK = 32          # the backward's steps a chunk (kBwdChunk)
+
+launches: Dict[str, int] = {"selective_scan_fused": 0,
+                            "selective_scan_fused_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -99,3 +114,46 @@ def selective_scan_fused(dt: torch.Tensor, x: torch.Tensor,
     launch(plan(b, di, sm_count(dt.device)), dt, x, bm, c, a, y)
     launches["selective_scan_fused"] += 1
     return y
+
+
+def bwd_scratch(b: int, t: int, di: int) -> Dict[str, Tuple[int, ...]]:
+    """The backward's fp32 scratch: the state at every chunk's end
+    (``hbuf``), each block's sums of dB and dC a step (``part_bc``) and
+    each batch row's dA (``part_a``)."""
+    return {"hbuf": (b, -(-t // BWD_CHUNK), di, MAX_STATE),
+            "part_bc": (b, -(-di // BWD_CHANNELS), t, 2 * MAX_STATE),
+            "part_a": (b, di, MAX_STATE)}
+
+
+def selective_scan_fused_bwd(dt: torch.Tensor, x: torch.Tensor,
+                             bm: torch.Tensor, c: torch.Tensor,
+                             a: torch.Tensor, dy: torch.Tensor
+                             ) -> Tuple[torch.Tensor, ...]:
+    """The fused scan's gradients on the card: from its inputs (dt/x [B,
+    T, di]; bm/c [B, T, N]; a [di, N]) and dy [B, T, di], all fp32, ->
+    (ddt, dx, dB, dC, dA) in the inputs' shapes, fp32."""
+    b, t, di, n = scan_dims(dt, a)
+    check_args("selective_scan_fused_bwd",
+               [("dt", dt), ("x", x), ("bm", bm), ("c", c), ("a", a),
+                ("dy", dy)],
+               {"dt": (b, t, di), "x": (b, t, di), "bm": (b, t, n),
+                "c": (b, t, n), "a": (di, n), "dy": (b, t, di)})
+    ddt, dx = torch.empty_like(dt), torch.empty_like(x)
+    dbm, dc, da = torch.empty_like(bm), torch.empty_like(c), \
+        torch.empty_like(a)
+    if dt.numel() == 0:
+        return ddt, dx, dbm, dc, da.zero_()
+    scratch = {k: torch.empty(s, dtype=torch.float32, device=dt.device)
+               for k, s in bwd_scratch(b, t, di).items()}
+    lib = load()
+    with torch.cuda.device(dt.device):
+        stream = torch.cuda.current_stream(dt.device).cuda_stream
+        err = lib.selective_scan_fused_bwd(
+            dt.data_ptr(), x.data_ptr(), bm.data_ptr(), c.data_ptr(),
+            a.data_ptr(), dy.data_ptr(), scratch["hbuf"].data_ptr(),
+            scratch["part_bc"].data_ptr(), scratch["part_a"].data_ptr(),
+            ddt.data_ptr(), dx.data_ptr(), dbm.data_ptr(), dc.data_ptr(),
+            da.data_ptr(), b, t, di, n, stream)
+    _build.raise_on(err, "selective_scan_fused_bwd")
+    launches["selective_scan_fused_bwd"] += 1
+    return ddt, dx, dbm, dc, da

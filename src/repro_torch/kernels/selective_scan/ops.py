@@ -9,11 +9,14 @@ prefill calls ``selective_scan_fused``.
 
 ``selective_scan_fused`` is an autograd ``Function``: the forward runs
 the fused kernel (or the sequential plain version on the CPU) and saves
-its inputs; the backward recomputes the scan through ``ssm_scan_chunked``
-(the reference's training scan: checkpointed chunks, an associative scan
-inside each) and returns the gradients of dt, x, B, C and A.  The kernel
-wrapper itself refuses inputs that require a gradient under grad mode,
-so no path reaches it without this backward.
+its inputs; the backward returns the gradients of dt, x, B, C and A.  On
+CUDA tensors it launches the backward kernel
+(``fused.selective_scan_fused_bwd``) and nothing else; on CPU tensors it
+recomputes the scan through ``ssm_scan_chunked`` (the reference's
+training scan: checkpointed chunks, an associative scan inside each)
+under autograd.  The kernel wrappers themselves refuse inputs that
+require a gradient under grad mode, so no path reaches the forward
+kernel without this backward.
 """
 from __future__ import annotations
 
@@ -41,7 +44,8 @@ def mamba_scan(dt: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
 
 class SelectiveScanFused(torch.autograd.Function):
     """Forward through the fused kernel (or the plain version on the
-    CPU); backward through the chunked scan."""
+    CPU); backward through the backward kernel (or the chunked scan on
+    the CPU)."""
 
     @staticmethod
     def forward(ctx, dt, x, bm, c, a):
@@ -52,8 +56,11 @@ class SelectiveScanFused(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
+        saved = ctx.saved_tensors      # once: checkpoint unpacks it once
+        if _route(saved[0]) == "cuda":
+            return fused.selective_scan_fused_bwd(*saved, grad.contiguous())
         with torch.enable_grad():
-            inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            inputs = [t.detach().requires_grad_() for t in saved]
             y = ssm_scan_chunked(*inputs)
             return torch.autograd.grad(y, inputs, grad)
 

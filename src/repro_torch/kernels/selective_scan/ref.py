@@ -9,8 +9,13 @@ compares the kernels with them.
 trains through (its ``models/layers.py::_ssm_scan_chunked``): chunks of
 the sequence in turn, each under activation checkpointing, and inside a
 chunk an associative scan in log2(chunk) shifted combine steps.  It is the
-fused scan's backward (``ops.selective_scan_fused``); autograd never runs
-through the T-step loop of the sequential versions.
+fused scan's backward on the CPU (``ops.selective_scan_fused``);
+autograd never runs through the T-step loop of the sequential versions.
+
+``selective_scan_fused_bwd_ref`` is the backward kernel's function: the
+gradients written out as a reverse-time recurrence, not autograd through
+a forward.  The tests hold it against ``jax.vjp`` of the reference's
+chunked scan, and the card run holds the backward kernel against it.
 """
 from __future__ import annotations
 
@@ -92,3 +97,41 @@ def ssm_scan_chunked(dt: torch.Tensor, x: torch.Tensor, bm: torch.Tensor,
             h, y = _chunk_scan(*args)
         ys.append(y)
     return torch.cat(ys, 1) if ys else dt.new_zeros((b, 0, di))
+
+
+def selective_scan_fused_bwd_ref(dt: torch.Tensor, x: torch.Tensor,
+                                 bm: torch.Tensor, c: torch.Tensor,
+                                 a: torch.Tensor, dy: torch.Tensor):
+    """The gradients of ``selective_scan_fused_ref`` (dt/x [B, T, di];
+    bm/c [B, T, N]; a [di, N]; dy [B, T, di], all fp32) -> (ddt, dx, dB,
+    dC, dA) in the inputs' shapes.  With decay_t = exp(dt_t a) and the
+    forward's states h_t (h_-1 = 0), back from g_T = 0:
+
+        g_t   = dy_t C_t + decay_{t+1} g_{t+1}          [B, di, N]
+        dC_t  = sum_d dy_t h_t          dB_t = sum_d g_t dt_t x_t
+        dx_t  = sum_n g_t dt_t B_t      ddt_t = sum_n g_t (x_t B_t
+                                                + a decay_t h_{t-1})
+        dA    = sum_{b, t} g_t dt_t decay_t h_{t-1}
+    """
+    b, t, di = dt.shape
+    zero = dt.new_zeros((b, di, a.shape[-1]))
+    hs = [zero]                                 # hs[i + 1] = h_i
+    for i in range(t):
+        bx = (dt[:, i] * x[:, i])[..., None] * bm[:, i, None, :]
+        hs.append(hs[-1] * torch.exp(dt[:, i, :, None] * a) + bx)
+    ddt, dx = torch.zeros_like(dt), torch.zeros_like(x)
+    dbm, dc, da = torch.zeros_like(bm), torch.zeros_like(c), \
+        torch.zeros_like(a)
+    carry = zero                                # decay_{t+1} g_{t+1}
+    for i in reversed(range(t)):
+        decay = torch.exp(dt[:, i, :, None] * a)
+        g = dy[:, i, :, None] * c[:, i, None, :] + carry
+        gdh = g * decay * hs[i]
+        gb = torch.einsum("bdn,bn->bd", g, bm[:, i])
+        dc[:, i] = torch.einsum("bdn,bd->bn", hs[i + 1], dy[:, i])
+        dbm[:, i] = torch.einsum("bdn,bd->bn", g, dt[:, i] * x[:, i])
+        dx[:, i] = gb * dt[:, i]
+        ddt[:, i] = gb * x[:, i] + torch.einsum("bdn,dn->bd", gdh, a)
+        da += torch.einsum("bdn,bd->dn", gdh, dt[:, i])
+        carry = decay * g
+    return ddt, dx, dbm, dc, da

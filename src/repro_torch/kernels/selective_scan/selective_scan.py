@@ -1,6 +1,6 @@
 """Build and launch the CUDA selective scan v1 kernel
-(``csrc/selective_scan.cu``, which also holds the fused kernel that
-``fused.py`` launches).
+(``csrc/selective_scan.cu``, which also holds the fused kernel and its
+backward that ``fused.py`` launches).
 
 The source is compiled at first use with nvcc into a shared library and
 bound with ctypes (``kernels/_build.py``).  The wrapper takes CUDA fp32
@@ -32,7 +32,8 @@ from .. import _build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "selective_scan.cu"
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {"selective_scan": [_VP] * 5 + [_I] * 6 + [_VP],
-              "selective_scan_fused": [_VP] * 6 + [_I] * 5 + [_VP]}
+              "selective_scan_fused": [_VP] * 6 + [_I] * 5 + [_VP],
+              "selective_scan_fused_bwd": [_VP] * 14 + [_I] * 4 + [_VP]}
 MAX_STATE = 16          # N the kernels hold: 16 states a channel
 MAX_BATCH = 65535       # the grid's y dimension
 

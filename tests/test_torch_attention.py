@@ -236,11 +236,14 @@ def test_flash_variant_choice(dtype, d, aligned, want):
 
 
 def test_reset_launches_clears_the_variant_counts():
-    flash_kernel.launches["flash_attention"] = 3
+    flash_kernel.launches.update(flash_attention=3, flash_attention_bwd=2)
     flash_kernel.variant_launches.update(mma=2, simt=1)
+    flash_kernel.bwd_variant_launches.update(mma=1, simt=1)
     flash_kernel.reset_launches()
-    assert flash_kernel.launches == {"flash_attention": 0}
+    assert flash_kernel.launches == {"flash_attention": 0,
+                                     "flash_attention_bwd": 0}
     assert flash_kernel.variant_launches == {"mma": 0, "simt": 0}
+    assert flash_kernel.bwd_variant_launches == {"mma": 0, "simt": 0}
 
 
 # ----------------------------------------------------------------------

@@ -10,7 +10,9 @@ a card and no JAX::
 The plain versions are held against the JAX package on the CPU by the
 other ``tests/test_torch_*.py`` files; here each kernel is held against
 its plain version on the same seeded inputs: the Bloom probes bit for bit,
-attention within fp32 2e-5 / bf16 2e-2, the scans within 1e-4, and a
+attention within fp32 2e-5 / bf16 2e-2, the scans within 1e-4, the
+training backward's kernels within 1e-4 (fp32) / 2e-2 (bf16) of each
+gradient's largest and bit for bit from one launch to the next, and a
 store on the card publishes the CPU store's rows byte for byte.
 """
 import json
@@ -27,7 +29,9 @@ from repro_torch.kernels.bloom_probe import bloom_probe as bloom_kernel  # noqa
 from repro_torch.kernels.bloom_probe import ref as bloom_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention as flash_kernel)
-from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_bwd_ref, attention_ref)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention as paged_kernel)
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
@@ -35,8 +39,10 @@ from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
 from repro_torch.kernels.selective_scan import fused as fused_kernel  # noqa
 from repro_torch.kernels.selective_scan import (  # noqa: E402
     selective_scan as scan_kernel)
+from repro_torch.kernels.selective_scan import ops as scan_ops  # noqa
 from repro_torch.kernels.selective_scan.ref import (  # noqa: E402
-    selective_scan_fused_ref, selective_scan_ref)
+    selective_scan_fused_bwd_ref, selective_scan_fused_ref,
+    selective_scan_ref)
 from repro_torch.lsm import filters  # noqa: E402
 from repro_torch.zoned.device import MiB  # noqa: E402
 
@@ -398,6 +404,109 @@ def test_kernel_wrappers_refuse_inputs_that_require_grad(card):
                                           *args[1:])
     with torch.no_grad():
         fused_kernel.selective_scan_fused(*args)
+
+
+# ----------------------------------------------------------------------
+# the training backward
+# ----------------------------------------------------------------------
+# (b, h, kv, sq, d, skv): G 1, 4, 5 and 48 at D 64 and 128, ragged S,
+# fewer queries than keys, and S 300 against 100 keys (with window 64 its
+# rows 163 on see no key)
+BWD_FLASH = [(1, 4, 4, 256, 64, 256), (2, 8, 2, 200, 64, 200),
+             (1, 10, 2, 130, 128, 130), (1, 48, 1, 150, 128, 150),
+             (2, 4, 2, 64, 64, 100), (1, 4, 2, 300, 64, 100)]
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# (b, t, di, n, mode): T 1 and around the backward's 32-step chunk, di no
+# multiple of its 32 channels, N 5 (4-byte copies), every decay 0, every
+# other decay 1, Hymba-1.5B's width
+BWD_SCAN = [(2, 1, 200, 16, "model"), (2, 33, 96, 16, "model"),
+            (3, 70, 37, 5, "model"), (2, 100, 1000, 16, "underflow"),
+            (2, 64, 96, 16, "zero_odd_steps"), (1, 300, 3200, 16, "model")]
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| over the largest |want|."""
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    return err / scale if scale > 0 else err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kv,sq,d,skv", BWD_FLASH)
+@pytest.mark.parametrize("dtype", list(ATTN_DTYPES))
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_backward_matches_plain(card, b, h, kv, sq, d, skv, dtype,
+                                      causal, window):
+    """dq, dk, dv of the backward kernels (dout in the layers' [B, S, H, D]
+    memory) against ``attention_bwd_ref`` on the forward kernel's output,
+    and a second launch bit for bit."""
+    rng = np.random.default_rng(sq + h)
+    q, k, v = (_randn(rng, shape, dtype).to(card) for shape in
+               ((b, h, sq, d), (b, kv, skv, d), (b, kv, skv, d)))
+    dout = _randn(rng, (b, sq, h, d), dtype).to(card).transpose(1, 2)
+    out, lse = flash_kernel.flash_attention_fwd(
+        q, k, v, causal=causal, window=window, with_lse=True)
+    got = flash_kernel.flash_attention_bwd(q, k, v, out, lse, dout,
+                                           causal=causal, window=window)
+    again = flash_kernel.flash_attention_bwd(q, k, v, out, lse, dout,
+                                             causal=causal, window=window)
+    want = attention_bwd_ref(q, k, v, out, dout, causal=causal,
+                             window=window)
+    torch.cuda.synchronize()
+    for name, g, w, a in zip("qkv", got, want, again):
+        assert torch.equal(g, a), name
+        assert _rel(g, w) <= BWD_TOL[dtype], name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,di,n,mode", BWD_SCAN)
+def test_scan_backward_matches_plain(card, b, t, di, n, mode):
+    """The five gradients of the scan's backward kernels against
+    ``selective_scan_fused_bwd_ref``, and a second launch bit for bit."""
+    args = _torch(*_edge_inputs(21, b, t, di, n, mode), dev=card)
+    dy = torch.from_numpy(np.random.default_rng(22).standard_normal(
+        (b, t, di)).astype(np.float32)).to(card)
+    got = fused_kernel.selective_scan_fused_bwd(*args, dy)
+    again = fused_kernel.selective_scan_fused_bwd(*args, dy)
+    want = selective_scan_fused_bwd_ref(*args, dy)
+    torch.cuda.synchronize()
+    for name, g, w, a in zip(("ddt", "dx", "dB", "dC", "dA"), got, want,
+                             again):
+        assert torch.equal(g, a), name
+        assert _rel(g, w) <= 1e-4, name
+
+
+@pytest.mark.gpu
+def test_functions_launch_the_backward_kernels(card):
+    """Through the differentiable entry points on CUDA tensors, each
+    backward launches its kernels once (counts + 1; flash's bf16 on the
+    tensor cores), and the gradients are the plain backward's."""
+    flash_kernel.reset_launches()
+    fused_kernel.reset_launches()
+    rng = np.random.default_rng(31)
+    q, k, v = (_randn(rng, shape, "bfloat16").to(card).requires_grad_()
+               for shape in ((2, 6, 96, 64), (2, 2, 96, 64), (2, 2, 96, 64)))
+    dout = _randn(rng, (2, 6, 96, 64), "bfloat16").to(card)
+    out = flash_ops.flash_attention(q, k, v, True, 32)
+    assert flash_kernel.launches == {"flash_attention": 1,
+                                     "flash_attention_bwd": 0}
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    assert flash_kernel.launches["flash_attention_bwd"] == 1
+    assert flash_kernel.bwd_variant_launches == {"mma": 1, "simt": 0}
+    want = attention_bwd_ref(q.detach(), k.detach(), v.detach(),
+                             out.detach(), dout, causal=True, window=32)
+    for name, g, w in zip("qkv", got, want):
+        assert _rel(g, w) <= BWD_TOL["bfloat16"], name
+    args = [t.requires_grad_() for t in
+            _torch(*_fused_inputs(32, 2, 45, 96, 16), dev=card)]
+    dy = torch.ones(2, 45, 96, device=card)
+    y = scan_ops.selective_scan_fused(*args)
+    got = torch.autograd.grad(y, args, dy)
+    assert fused_kernel.launches == {"selective_scan_fused": 1,
+                                     "selective_scan_fused_bwd": 1}
+    want = selective_scan_fused_bwd_ref(*(t.detach() for t in args), dy)
+    for name, g, w in zip(("ddt", "dx", "dB", "dC", "dA"), got, want):
+        assert _rel(g, w) <= 1e-4, name
 
 
 # ----------------------------------------------------------------------

@@ -307,8 +307,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     dt, x, bm, c, a = _torch(*_fused_inputs(4, 1, 8, 32, 4))
     with pytest.raises(ValueError, match="CUDA kernel"):
         fused_kernel.selective_scan_fused(dt, x, bm, c, a)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        fused_kernel.selective_scan_fused_bwd(dt, x, bm, c, a, x)
     assert scan_kernel.launches == {"selective_scan": 0}
-    assert fused_kernel.launches == {"selective_scan_fused": 0}
+    assert fused_kernel.launches == {"selective_scan_fused": 0,
+                                     "selective_scan_fused_bwd": 0}
 
 
 def test_entry_points_refuse_other_devices():
