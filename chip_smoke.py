@@ -1121,8 +1121,9 @@ FLASH_MIXTRAL = (1, 48, 8, 8192, 128, 8192)
 PLAIN_SCORES_BYTES = 4 << 30  # attention_plain splits calls past this
 # the backward kernels against their plain version and autograd, each
 # gradient relative to its largest; and a call whose last rows see no key
-# (S 300 against 100 keys, window 64: rows 163 on), the -1e30 fill's
-# uniform weights, causal and not
+# (S 300 against 100 keys, window 64: rows 163 on), forward and backward:
+# the -1e30 fill's uniform weights (the forward's mean of v), causal and
+# not
 FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 FLASH_MASKED = (1, 4, 2, 300, 64, 100)
 FLASH_MASKED_MASKS = [(True, 64), (False, 64)]
@@ -1254,20 +1255,19 @@ def phase_attention_kernels(dev) -> dict:
     masked_rng = np.random.default_rng(55)
     out, back = {}, {}
 
-    def flash(dtype, shape, masks, forward=True, gen=rng):
+    def flash(dtype, shape, masks, gen=rng):
         for causal, window in masks:
             q, k, v = flash_case(gen, *shape[:5], dtype, dev, *shape[5:])
             tag = f"{dname}_{'x'.join(map(str, shape))}" \
                 f"_causal{int(causal)}_window{window}"
-            if forward:
-                got = flash_kernel.flash_attention_fwd(
-                    q, k, v, causal=causal, window=window)
-                want = attention_plain(q, k, v, causal=causal, window=window)
-                err, ok = within(got, want, TOL[dtype])
-                out[f"flash_{tag}"] = {
-                    "max_abs_err": err, "ok": ok,
-                    "variant": flash_kernel.variant(dtype, shape[4])}
-                del got, want
+            got = flash_kernel.flash_attention_fwd(
+                q, k, v, causal=causal, window=window)
+            want = attention_plain(q, k, v, causal=causal, window=window)
+            err, ok = within(got, want, TOL[dtype])
+            out[f"flash_{tag}"] = {
+                "max_abs_err": err, "ok": ok,
+                "variant": flash_kernel.variant(dtype, shape[4])}
+            del got, want
             back[f"flash_bwd_{tag}"] = flash_bwd_errors(q, k, v, causal,
                                                         window)
             del q, k, v
@@ -1296,8 +1296,7 @@ def phase_attention_kernels(dev) -> dict:
             flash(dtype, shape, [(False, None)])
         if dtype == torch.bfloat16:
             flash(dtype, FLASH_MIXTRAL, [(True, 4096)])
-        flash(dtype, FLASH_MASKED, FLASH_MASKED_MASKS, forward=False,
-              gen=masked_rng)
+        flash(dtype, FLASH_MASKED, FLASH_MASKED_MASKS, gen=masked_rng)
         for shape in PAGED_CASES:
             paged(dtype, shape)
         for shape, lens in PAGED_EDGE:
@@ -2867,8 +2866,7 @@ BACKWARDS = {"flash_attention_backward": (flash_ops.FlashAttention,
                                          "backward")}
 # the backward kernels' symbols, by the span that launches them
 BACKWARD_KERNELS = {
-    "flash_attention_backward": ("flash_bwd_dq_kernel",
-                                 "flash_bwd_dkdv_kernel"),
+    "flash_attention_backward": ("flash_bwd_dq", "flash_bwd_dkdv"),
     "selective_scan_backward": ("selective_scan_fused_bwd_kernel",
                                 "selective_scan_fused_bwd_reduce_kernel")}
 

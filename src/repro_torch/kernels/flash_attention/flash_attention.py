@@ -20,11 +20,15 @@ With ``with_lse`` the forward also returns each row's log-sum-exp (fp32
 [B, H, Sq]), which the backward takes; without it the kernels write none.
 
 ``flash_attention_bwd`` launches the backward: a dQ kernel (which also
-writes each row's Delta = sum_d dO O) then a dK/dV kernel, each owning its
-output rows (no atomics: deterministic).  ``bwd_variant`` picks the
-tensor cores (``"mma"``: bf16, D a multiple of 16 up to 128, every row
-16-byte aligned) or the CUDA cores (``"simt"``: fp32, or any other bf16
-call); ``supports`` guards both directions.  ``launches`` counts one
+writes each row's Delta = sum_d dO O into a scratch) then a dK/dV kernel,
+each owning its output rows (no atomics: deterministic).  ``bwd_variant``
+picks the tensor cores (``"mma"``: bf16, D a multiple of 16 up to 128,
+every pointer and row 16-byte aligned; wgmma fed by TMA, the scratch
+[2, B, H, Sq rounded up to ``BWD_ROW_TILE``] holding Delta and the
+log-sum-exp in log2 units) or the CUDA cores (``"simt"``: fp32, or any
+other bf16 call; the scratch [B, H, Sq]); ``supports`` guards both
+directions.  A window row that sees no key gets, as in the reference, the
+mean of v from the forward and dO / Skv in every key's dv.  ``launches`` counts one
 launch a wrapper call (the backward's two kernels count once) and
 ``bwd_variant_launches`` the backward's by variant.
 """
@@ -47,6 +51,7 @@ SIGNATURES = {"flash_attention_fwd": [_VP] * 5 + [_I] * 9 + [_VP],
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 MAX_MMA_BWD_HEAD_DIM = 128  # the tensor-core backward's widest D
+BWD_ROW_TILE = 64           # the tensor-core backward's positions a tile
 MAX_GRID_YZ = 65535     # CUDA's limit on a grid's y and z extents
 
 launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
@@ -178,13 +183,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        for s in dout.stride()[:3])
     kind = bwd_variant(q.dtype, d, rows_aligned and all(
         t.data_ptr() % 16 == 0 for t in (q, k, v, out, dout, dq, dk, dv)))
-    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    # Delta (and, for the tensor cores, lse in log2 units), written by the
+    # dQ kernel and read by the dK/dV kernel
+    scratch = torch.empty(
+        (2, b, h, -(-sq // BWD_ROW_TILE) * BWD_ROW_TILE)
+        if kind == "mma" else q.shape[:3],
+        dtype=torch.float32, device=q.device)
     lib = load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             int(kind == "mma"), DTYPES[q.dtype], b, h, kvh, sq, skv, d,
             int(causal), 0 if window is None else int(window),

@@ -99,6 +99,29 @@ def test_attention_ref_matches_reference(b, h, kv, s, d, dtype, causal,
     np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_ref_rows_that_see_no_key(dtype, causal):
+    """300 queries against 100 keys with a window of 64: rows 163 on see
+    no key.  The -1e30 fill gives them uniform weights, so the reference
+    and the port's plain forward (through the entry point) give them the
+    mean of their KV head's v; the rows before stay the reference's."""
+    rng = np.random.default_rng(9)
+    (jq, tq), (jk, tk), (jv, tv) = [
+        _pair(rng.standard_normal(shape).astype(np.float32), dtype)
+        for shape in ((1, 4, 300, 64), (1, 2, 100, 64), (1, 2, 100, 64))]
+    want = jax_attention_ref(jq, jk, jv, causal=causal, window=64)
+    got = flash_ops.flash_attention(tq, tk, tv, causal, 64)
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
+    mean = tv.float().mean(dim=2).repeat_interleave(2, dim=1)  # [1, 4, 64]
+    blind = got[:, :, 100 + 64 - 1:]
+    np.testing.assert_allclose(
+        _f32(blind), _f32(mean[:, :, None].expand_as(blind).to(tv.dtype)),
+        **_tol(dtype))
+    np.testing.assert_allclose(_f32(want)[:, :, 163:], _f32(blind),
+                               **_tol(dtype))
+
+
 @pytest.mark.parametrize("s", [37, 300])
 def test_attention_ref_ragged_matches_reference(s):
     """Prompt lengths the Pallas kernel's block assert refuses (causal,

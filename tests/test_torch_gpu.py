@@ -145,6 +145,49 @@ def test_flash_kernel_matches_plain(card, b, h, kv, s, d, dtype, causal,
     np.testing.assert_allclose(_f32(got), _f32(want), **_attn_tol(dtype))
 
 
+# (b, h, kv, sq, d, skv), window 64: the rows from Skv + 63 on see no key.
+# A forward block takes 64 folded rows (32 positions at G 2, 12.8 at G 5),
+# so some blocks straddle the first such row and the later ones hold only
+# such rows
+NO_KEY_FLASH = [(1, 4, 2, 300, 64, 100), (1, 4, 2, 300, 128, 100),
+                (2, 10, 2, 257, 64, 90), (1, 10, 2, 257, 128, 90)]
+# the forward kernels and the dtypes each takes ("mma": bf16 only)
+FWD_KINDS = [("float32", "simt"), ("bfloat16", "simt"), ("bfloat16", "mma")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kv,sq,d,skv", NO_KEY_FLASH)
+@pytest.mark.parametrize("dtype,kind", FWD_KINDS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_forward_rows_that_see_no_key(card, b, h, kv, sq, d, skv,
+                                            dtype, kind, causal):
+    """Both forward kernels against ``attention_ref`` where the last rows
+    see no key (window 64): there the mean of the KV head's v, summed in
+    fp32, and the -1e30 fill's log-sum-exp; a rerun gives the same bits."""
+    rng = np.random.default_rng(sq + d)
+    q, k, v = (_randn(rng, shape, dtype).to(card) for shape in
+               ((b, h, sq, d), (b, kv, skv, d), (b, kv, skv, d)))
+    outs = []
+    for _ in range(2):
+        out = torch.empty_like(q)
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=card)
+        flash_kernel.launch(kind, q, k, v, out, causal, 64, lse)
+        outs.append((out, lse))
+    want = attention_ref(q, k, v, causal=causal, window=64)
+    torch.cuda.synchronize()
+    (out, lse), (again, lse_again) = outs
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
+    np.testing.assert_allclose(_f32(out), _f32(want), **_attn_tol(dtype))
+    first = skv + 64 - 1
+    mean = v.float().mean(dim=2).repeat_interleave(h // kv, dim=1)
+    np.testing.assert_allclose(
+        _f32(out[:, :, first:]),
+        _f32(mean[:, :, None].expand(b, h, sq - first, d).to(q.dtype)),
+        **_attn_tol(dtype))
+    assert torch.all(lse[:, :, first:] == -1e30)
+    assert torch.isfinite(lse[:, :, :first]).all()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,kv,g,pages,ps,mp,d",
                          PAGED_SHAPES + [(1, 8, 2, 512, 16, 80, 128)]
@@ -415,6 +458,21 @@ def test_kernel_wrappers_refuse_inputs_that_require_grad(card):
 BWD_FLASH = [(1, 4, 4, 256, 64, 256), (2, 8, 2, 200, 64, 200),
              (1, 10, 2, 130, 128, 130), (1, 48, 1, 150, 128, 150),
              (2, 4, 2, 64, 64, 100), (1, 4, 2, 300, 64, 100)]
+# the train paths' calls and the tensor-core kernels' edges, each with its
+# masks: Hymba-1.5B's layers (full and window 1,024), Qwen3-1.7B's in
+# phase 19a (B 2, 16 / 8 heads, S 256, D 128), a ragged Skv (333: no
+# multiple of 64 or 128) against fewer and more queries, and G 48 at D
+# 128 past one dQ block of positions
+BWD_WIDE = [(HYMBA_FLASH + (2048,), True, None),
+            (HYMBA_FLASH + (2048,), True, 1024),
+            ((2, 16, 8, 256, 128, 256), True, None),
+            ((1, 8, 2, 333, 64, 333), True, None),
+            ((1, 8, 2, 333, 64, 333), True, 64),
+            ((2, 6, 3, 200, 128, 333), False, None),
+            ((1, 6, 3, 400, 64, 333), True, 100),
+            ((1, 48, 1, 400, 128, 400), True, None)]
+BWD_CASES = ([(shape, causal, window) for shape in BWD_FLASH
+              for causal, window in MASKS] + BWD_WIDE)
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # (b, t, di, n, mode): T 1 and around the backward's 32-step chunk, di no
 # multiple of its 32 channels, N 5 (4-byte copies), every decay 0, every
@@ -432,14 +490,13 @@ def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,h,kv,sq,d,skv", BWD_FLASH)
+@pytest.mark.parametrize("shape,causal,window", BWD_CASES)
 @pytest.mark.parametrize("dtype", list(ATTN_DTYPES))
-@pytest.mark.parametrize("causal,window", MASKS)
-def test_flash_backward_matches_plain(card, b, h, kv, sq, d, skv, dtype,
-                                      causal, window):
+def test_flash_backward_matches_plain(card, shape, causal, window, dtype):
     """dq, dk, dv of the backward kernels (dout in the layers' [B, S, H, D]
     memory) against ``attention_bwd_ref`` on the forward kernel's output,
     and a second launch bit for bit."""
+    b, h, kv, sq, d, skv = shape
     rng = np.random.default_rng(sq + h)
     q, k, v = (_randn(rng, shape, dtype).to(card) for shape in
                ((b, h, sq, d), (b, kv, skv, d), (b, kv, skv, d)))
