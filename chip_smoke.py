@@ -5,7 +5,9 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch`` (Bloom probe, paged
 decode attention, flash attention forward, the two selective scans), one
-nvcc per source, all started together, into ``build/repro_torch/``, then:
+nvcc per source, all started together, into ``build/repro_torch/`` (the
+Bloom probe's waited for first; the others compile while phases 1-4,
+which launch it alone, run, and are waited for before phase 5), then:
 
 1. kernels vs plain: both CUDA kernels against their plain PyTorch
    versions on the card and the numpy twins, bit for bit: the
@@ -69,8 +71,9 @@ nvcc per source, all started together, into ``build/repro_torch/``, then:
    TF32 off, so only the order of sums differs; a wrong kernel is off by
    O(1));
 7. the serving path at full size: Qwen3-1.7B, all 28 layers, bf16 random
-   weights (seed 0) on the card, 24 requests of 512-1536 prompt tokens and
-   64 new tokens each through ``ServingEngine`` over HHZS-tiered paged KV,
+   weights (seed 0) on the card, the first 12 of the cell's 24 requests
+   (cut for the time limit) of 512-1536 prompt tokens and 64 new tokens
+   each through ``ServingEngine`` over HHZS-tiered paged KV,
    with the launch counts zeroed just before ``run`` and read just after:
    one flash launch per layer of each prefill (each counted by the kernel
    it took: fp32 goes to the CUDA-core kernel), one paged launch per layer
@@ -87,11 +90,17 @@ nvcc per source, all started together, into ``build/repro_torch/``, then:
    whatever the wrapper picks, v1 at launch options (channels a block x
    ring stages: 8 x 1, 40 x 2, 256 x 3) whatever its plan picks and on
    its scalar route (bx offset by one float); then both kernels' edges:
-   T 1, on, one below and one above the fused kernel's 32-step chunk and
-   half of it and v1's 4-step stage, di 3,000 (no multiple of any
-   block's channels) and 37 (odd: 4-byte copies, v1's scalar route), N
-   1, 5, 8, decays all 0 (dt 500), all 1 (dt 0) and 1 on every other
-   step, and B 1 at Falcon-Mamba's width;
+   T 1, on, one below and one above the fused kernel's 32-step chunk,
+   half of it, the backward's 8-step chunk and v1's 4-step stage, di
+   3,000 (no multiple of any block's channels) and 37 (odd: 4-byte
+   copies, v1's scalar route), N 1, 5, 8, decays all 0 (dt 500), all 1
+   (dt 0) and 1 on every other step, and B 1 at Falcon-Mamba's width;
+   the fused scan's backward at every case against its plain version
+   and autograd through ``ssm_scan_chunked`` (each gradient within 1e-4
+   of its largest, a rerun bit for bit), also at 8, 32, 104 and 128
+   channels a block whatever its plan picks and on its scalar route
+   (dt, x and dy one float past a 16-byte boundary), and at di 3,208 (no
+   multiple of Hymba's plan's 104);
 10. model identity: Falcon-Mamba-7B at full width cut to 2 layers and
    Hymba-1.5B cut to 3 (``layer_windows`` takes the full-attention layers
    modulo depth: at 2 every Hymba layer is full), fp32 weights, TF32 off.
@@ -412,8 +421,12 @@ REPLACES = {
     "selective_scan_fused": "src/repro/kernels/selective_scan/fused.py:25",
 }
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
-# phase 7: the serving path at full size
+# phase 7: the serving path at full size; the run takes the first
+# SERVE_RUN_REQUESTS of the cell's SERVE_REQUESTS (its record's ``cut``),
+# one wave of max_batch 12 where 24 make two, for the script's time limit:
+# 8 of the 12 placed on the card and 4 on the host, so tiers still mix
 SERVE_REQUESTS = 24
+SERVE_RUN_REQUESTS = 12
 SERVE_NEW_TOKENS = 64
 ALL_PHASES = tuple(range(1, 21))
 
@@ -1724,24 +1737,30 @@ SCAN_CASES = ([(1, 64, 256, 8), (2, 128, 512, 16), (1, 256, 256, 4)]
               + [(2, t, di, 16) for t in (1, 1000, 2048)
                  for di in (3200, 8192)])
 # both kernels' edges (b, t, di, n, dt): T on, one below and one above
-# the fused kernel's chunk (32 steps a shared buffer) and half of it, and
-# v1's ring stage (4 steps); di not a multiple of any lanes option's
-# channels a block (64, 32) nor of v1's plan, and di odd (dt and x copied
-# 4 bytes at a time; v1's scalar route); N 1, 5, 8, 16; dt so large
-# that every decay underflows to 0 (A bounded away from 0), dt 0 (every
-# decay 1) everywhere and on every other step; B 1 at Falcon-Mamba's width
-SCAN_EDGES = ([(2, t, 3000, 16, "model") for t in (1, 3, 4, 5, 15, 16, 17,
-                                                   31, 32, 33)]
+# the fused kernel's chunk (32 steps a shared buffer), half of it, the
+# backward's 8-step chunk and v1's ring stage (4 steps); di not a
+# multiple of any lanes option's channels a block (64, 32), of v1's plan
+# nor of the backward's (48 at 3,000, 104 at 3,208), and di odd (dt and
+# x copied 4 bytes at a time; v1's and the backward's scalar routes); N 1,
+# 5, 8, 16; dt so large that every decay underflows to 0 (A bounded away
+# from 0), dt 0 (every decay 1) everywhere and on every other step; B 1
+# at Falcon-Mamba's width
+SCAN_EDGES = ([(2, t, 3000, 16, "model") for t in (1, 3, 4, 5, 7, 8, 9,
+                                                   15, 16, 17, 31, 32, 33)]
               + [(3, 70, 37, 16, "model"), (2, 40, 1000, 1, "model"),
                  (2, 40, 1000, 5, "model"), (2, 40, 1000, 8, "model"),
                  (2, 100, 1000, 16, "underflow"), (2, 100, 1000, 16, "zero"),
                  (2, 100, 1000, 16, "zero_odd_steps"),
-                 (1, 2048, 8192, 16, "model")])
+                 (4, 48, 3208, 16, "model"), (1, 2048, 8192, 16, "model")])
 SCAN_TOL = 1e-4                       # tests/test_kernels.py
 # v1's launch options (channels a block, ring stages) run at every case
 # whatever its plan picks: the fewest of each, a width no power of 2, the
 # widest block
 V1_OPTIONS = ((8, 1), (40, 2), (256, 3))
+# the backward's channels a block run at every case whatever its plan
+# picks: the fewest, 32, and the plans at Hymba's and Falcon-Mamba's
+# widths
+BWD_OPTIONS = (8, 32, 104, 128)
 
 
 def fused_case(rng, b, t, di, n, dev, dt_mode: str = "model") -> tuple:
@@ -1840,14 +1859,29 @@ def scan_bwd_errors(call, dy) -> dict:
     """The backward kernels on one call against
     ``selective_scan_fused_bwd_ref`` and autograd through
     ``ssm_scan_chunked``, each gradient relative to its largest, and a
-    second launch on the same inputs bit for bit."""
+    second launch on the same inputs bit for bit; the kernels also at
+    each of BWD_OPTIONS channels a block and on the scalar route (dt, x
+    and dy one float past a 16-byte boundary) against the plain
+    backward."""
     got = fused_kernel.selective_scan_fused_bwd(*call, dy)
     again = fused_kernel.selective_scan_fused_bwd(*call, dy)
     names = ("ddt", "dx", "dB", "dC", "dA")
+    want = selective_scan_fused_bwd_ref(*call, dy)
     errs = {f"{n}_vs_plain": card_rel_err(x, y) for n, x, y in zip(
-        names, got, selective_scan_fused_bwd_ref(*call, dy))}
+        names, got, want)}
     errs.update({f"{n}_vs_autograd": card_rel_err(x, y) for n, x, y in zip(
         names, got, scan_grads_autograd(*call, dy))})
+    dt = call[0]
+    sms = fused_kernel.sm_count(dt.device)
+    for ch in BWD_OPTIONS:
+        p = fused_kernel.bwd_shape(dt.shape[0], dt.shape[2], ch, sms)
+        errs.update({f"{n}_{ch}ch_vs_plain": card_rel_err(x, y)
+                     for n, x, y in zip(names, fused_kernel.bwd_launch(
+                         p, *call, dy), want)})
+    scalar = fused_kernel.selective_scan_fused_bwd(
+        offset(dt), offset(call[1]), *call[2:], offset(dy))
+    errs.update({f"{n}_scalar_vs_plain": card_rel_err(x, y)
+                 for n, x, y in zip(names, scalar, want)})
     return {"errors": errs, "ok": all(e <= SCAN_TOL for e in errs.values()),
             "bitwise_repeat": all(torch.equal(x, y)
                                   for x, y in zip(got, again))}
@@ -2867,7 +2901,8 @@ BACKWARDS = {"flash_attention_backward": (flash_ops.FlashAttention,
 # the backward kernels' symbols, by the span that launches them
 BACKWARD_KERNELS = {
     "flash_attention_backward": ("flash_bwd_dq", "flash_bwd_dkdv"),
-    "selective_scan_backward": ("selective_scan_fused_bwd_kernel",
+    "selective_scan_backward": ("selective_scan_fused_bwd_orders_kernel",
+                                "selective_scan_fused_bwd_kernel",
                                 "selective_scan_fused_bwd_reduce_kernel")}
 
 
@@ -2942,6 +2977,9 @@ BWD_REPLACES = {
     "flash_attention_bwd": "src/repro/kernels/flash_attention/ops.py:42"}
 # per (t, d, n): g 2, dB 2, dC 2, dx 2, ddt 4 (x B + A decay h), dA 2
 SCAN_BWD_FLOPS = 14
+# the backward kernel's exponentials a (t, d, n): its pass 1 and its
+# recompute (the walk back reuses the recompute's decays)
+SCAN_BWD_EXPONENTIALS = 2
 FLASH_BWD_FLOPS = 10          # QK^T, dO V^T, P^T dO, dS^T Q, dS K
 
 
@@ -3060,6 +3098,11 @@ def phase_train_backward(calls: dict, launched: dict) -> list:
     sfu_per_s = (fused_kernel.sm_count(scan_args[0].device) * SFU_PER_CLOCK
                  * max_sm_hz())
     wrapper = fused_kernel.selective_scan_fused_bwd
+    sms = fused_kernel.sm_count(scan_args[0].device)
+    plan = fused_kernel.bwd_plan(scan_args[0].shape[0],
+                                 scan_args[0].shape[2], sms)
+    occ = fused_kernel.bwd_occupancy(plan.channels, scan_args[0].device)
+    device_ms = bracketed_ms(wrapper, [scan_args], 3)
     rows.append({
         "name": "selective_scan_fused_bwd", "route": "cuda",
         "source": str(SCAN_SOURCE.relative_to(ROOT)),
@@ -3067,12 +3110,17 @@ def phase_train_backward(calls: dict, launched: dict) -> list:
         "launches": launched["selective_scan_fused_bwd"],
         "max_abs_err": err, "max_rel_err": rel, "dtype": "float32",
         "shape": list(scan_args[0].shape) + [scan_args[4].shape[1]],
+        "plan": {"channels": plan.channels, "grid": list(plan.grid),
+                 **occ._asdict(), "waves": plan.grid[0] * plan.grid[1]
+                 / (sms * occ.blocks_per_sm)},
         "ms": cuda_ms(wrapper, [scan_args], 5),
-        "device_ms": bracketed_ms(wrapper, [scan_args], 3),
+        "device_ms": device_ms,
         "plain_ms": cuda_ms(selective_scan_fused_bwd_ref, [scan_args], 1),
         "bound_ms": 1e3 * max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bound_sfu_ms": 1e3 * scan_sfu_bound(scan_args, sfu_per_s),
+        "bound_share": 1e3 * max(t_bytes, t_ops) / device_ms,
+        "bound_sfu_ms": 1e3 * SCAN_BWD_EXPONENTIALS * scan_sfu_bound(
+            scan_args, sfu_per_s),
         "library_ms": None, "backward_ops": scan_ops_seen})
     del scan_args
     torch.cuda.empty_cache()
@@ -4974,11 +5022,16 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     t0 = time.perf_counter()
-    libs = _build.build_all([kernel.SOURCE, paged_kernel.SOURCE,
-                             flash_kernel.SOURCE, scan_kernel.SOURCE],
-                            force=True)
-    for mod in (kernel, paged_kernel, flash_kernel, scan_kernel):
-        mod.load()
+    # phases 1-4 launch the Bloom probe alone: the other kernels compile
+    # while they run
+    rest = (paged_kernel, flash_kernel, scan_kernel)
+    started = _build.start_all([mod.SOURCE for mod in rest], force=True)
+    try:
+        libs = _build.build_all([kernel.SOURCE], force=True)
+        kernel.load()
+    except BaseException:
+        _build.stop_all(started)
+        raise
     emit(build={"libraries": [str(lib.relative_to(ROOT)) for lib in libs],
                 "seconds": time.perf_counter() - t0})
     dev = torch.device("cuda")
@@ -4990,29 +5043,39 @@ def main() -> int:
         now = time.perf_counter()
         out, last[0] = now - last[0], now
         return out
-    if 1 in phases:
-        emit(phase1=phase_kernels(dev), card=card, seconds=seconds())
-    paper_keys = ScenarioConfig().paper_keys
-    if 2 in phases:
-        emit(phase2=phase_identity(paper_keys // 16), card=card,
-             seconds=seconds())
-    if 3 in phases:
-        main_out, row, rec, pk_rec = phase_main(paper_keys)
-        emit(phase3=main_out, card=card, seconds=seconds())
-        emit(phase3_row=row)
-    if 4 in phases:
-        kernels += phase_captured(rec, pk_rec,
-                                  main_out["main_path"]["launches"],
-                                  main_out["perkey_path"]["launches"],
-                                  paper_keys)
-        emit(phase4=timings(card, kernels), seconds=seconds())
+    try:
+        if 1 in phases:
+            emit(phase1=phase_kernels(dev), card=card, seconds=seconds())
+        paper_keys = ScenarioConfig().paper_keys
+        if 2 in phases:
+            emit(phase2=phase_identity(paper_keys // 16), card=card,
+                 seconds=seconds())
+        if 3 in phases:
+            main_out, row, rec, pk_rec = phase_main(paper_keys)
+            emit(phase3=main_out, card=card, seconds=seconds())
+            emit(phase3_row=row)
+        if 4 in phases:
+            kernels += phase_captured(rec, pk_rec,
+                                      main_out["main_path"]["launches"],
+                                      main_out["perkey_path"]["launches"],
+                                      paper_keys)
+            emit(phase4=timings(card, kernels), seconds=seconds())
+    except BaseException:
+        _build.stop_all(started)
+        raise
+    libs = _build.finish_all(started)
+    for mod in rest:
+        mod.load()
+    emit(build={"libraries": [str(lib.relative_to(ROOT)) for lib in libs],
+                "seconds": time.perf_counter() - t0}, seconds=seconds())
     if 5 in phases:
         emit(phase5=phase_attention_kernels(dev), card=card,
              seconds=seconds())
     if 6 in phases:
         emit(phase6=phase_serving_identity(), card=card, seconds=seconds())
     if 7 in phases:
-        serve_out, serve_rec = phase_serving_main()
+        serve_out, serve_rec = phase_serving_main(
+            n_requests=SERVE_RUN_REQUESTS)
         emit(phase7=serve_out, card=card, seconds=seconds())
     if 8 in phases:
         attention = phase_attention_captured(serve_rec,

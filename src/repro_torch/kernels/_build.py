@@ -5,8 +5,10 @@ interface, under ``build/repro_torch/`` in the checkout: no ninja and no
 PyTorch headers are needed.  The library's name carries a hash of the
 source, so an edited source is rebuilt and a built one is reused across
 processes.  ``build_all`` starts one nvcc per source, all at once, and
-waits for them together.  ``refuse_grad`` is the wrappers' guard against
-a launch whose output autograd could not follow.
+waits for them together; ``start_all`` and ``finish_all`` do the two
+apart, so that a caller can work while they compile.  ``refuse_grad`` is
+the wrappers' guard against a launch whose output autograd could not
+follow.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 from typing import Dict, Iterable, List
 
@@ -43,36 +46,67 @@ def library_path(source: Path) -> Path:
     return BUILD_DIR / f"lib{source.stem}-{digest}.so"
 
 
+def start_all(sources: Iterable[Path], force: bool = False) -> list:
+    """Start one nvcc for every source that has no library yet (all of
+    them when ``force``), all at once, and return without waiting: what
+    ``finish_all`` (or ``stop_all``) takes."""
+    started = []
+    for src in map(Path, sources):
+        lib = library_path(src)
+        proc = cmd = tmp = log = None
+        if force or not lib.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            # the compiler's output to a file: a pipe nobody reads yet
+            # could fill and stall it
+            log = tempfile.TemporaryFile("w+")
+            proc = subprocess.Popen(cmd, stdout=log,
+                                    stderr=subprocess.STDOUT, text=True)
+        started.append((lib, cmd, tmp, log, proc))
+    return started
+
+
+def finish_all(started: list) -> List[Path]:
+    """Wait for ``start_all``'s compilers.  Returns the libraries' paths
+    in the order of its sources; raises with the compiler's output if any
+    build fails."""
+    failed = []
+    for lib, cmd, tmp, log, proc in started:
+        if proc is None:
+            continue
+        proc.wait()
+        log.seek(0)
+        out = log.read()
+        log.close()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [lib for lib, *_ in started]
+
+
+def stop_all(started: list) -> None:
+    """Kill what ``start_all`` started that still runs, and drop what it
+    left half written."""
+    for _, _, tmp, log, proc in started:
+        if proc is not None:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+            tmp.unlink(missing_ok=True)
+
+
 def build_all(sources: Iterable[Path], force: bool = False) -> List[Path]:
     """Compile every source that has no library yet (all of them when
     ``force``), one nvcc process each, started together.  Returns the
     libraries' paths in the order of ``sources``; raises with the
     compiler's output if any build fails."""
-    sources = [Path(s) for s in sources]
-    libs = [library_path(s) for s in sources]
-    todo = [(s, lib) for s, lib in zip(sources, libs)
-            if force or not lib.exists()]
-    if todo:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = nvcc_path()
-        procs = []
-        for src, lib in todo:
-            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            procs.append((cmd, tmp, lib, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
-        failed = []
-        for cmd, tmp, lib, proc in procs:
-            out, _ = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"nvcc failed ({proc.returncode}):\n"
-                              f"{' '.join(cmd)}\n{out}")
-            else:
-                os.replace(tmp, lib)
-        if failed:
-            raise RuntimeError("\n".join(failed))
-    return libs
+    return finish_all(start_all(sources, force))
 
 
 def build(source: Path, force: bool = False) -> Path:

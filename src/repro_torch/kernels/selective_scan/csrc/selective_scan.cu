@@ -105,33 +105,54 @@
 //   dB_t  = sum_d g_t dt_t x_t       dC_t  = sum_d dy_t h_t
 //   dA    = sum_{b,t} g_t dt_t decay_t h_{t-1}
 //
-// What bounds it: bytes, like the forward: dt, x and dy read and ddt and
-// dx written, 20 bytes a (t, d), against one exponential a (t, d, n) if the
-// states were kept; but the states are not kept, so each is recomputed.
-// The design (selective_scan_fused_bwd_kernel, 4 lanes a channel, 32
-// channels a block of one batch row, as the forward lays out its lanes):
-//   1. Pass 1 runs the recurrence forward over T and stores the state at
-//      the end of every 32-step chunk (scratch [B, ceil(T / 32), di, 16]).
-//   2. Pass 2 walks the chunks back: it recomputes the chunk's 32 states
-//      from the state before it into shared memory, each thread its own
-//      (the forward's decay 0.5 ex2(dt A log2(e) + 1), so the states are
-//      the forward's bit for bit), then runs g back through them.
-//   3. dx and ddt are lane sums over the channel's states: one butterfly
-//      every 4 steps, as the forward's y.  dB and dC are sums over the
-//      block's channels: a butterfly over the warp's 8 channels every step
-//      leaves each lane one of the 32 (dB, dC) values, then the 4 warps'
-//      are added in shared memory into per-block partials [B, di blocks,
-//      T, 32]; dA stays in registers over all of T, a partial per batch
-//      row [B, di, 16].
-//   4. Deterministic: no atomics; a second small kernel
+// What bounds it: not its bytes (dt, x, dy, B, C read and the gradients
+// written, 20 bytes a (t, d), would take about as long as one exponential
+// a (t, d, n)), but its work a (t, d, n): the forward does not keep the
+// states, so each is computed twice, and each (t, d, n) also takes some
+// fifteen FMAs and loads and its share of the dB, dC and dx, ddt sums
+// across lanes, all at one or two blocks an SM (the issue slots and the
+// shared-memory and shuffle pipe; see PERF.md for the measured split).
+// The design (selective_scan_fused_bwd_kernel; 4 lanes a channel, 4
+// states a lane, as the forward lays out its lanes):
+//   1. Two exponentials a (t, d, n).  Pass 1 runs the recurrence forward
+//      and stores the state at the end of every 8-step chunk (scratch
+//      [B, ceil(T / 8), di, 16]).  Pass 2 walks the chunks back: it
+//      recomputes the chunk's 8 states and their decays into registers
+//      (the chunk fully unrolled, 64 registers a thread) and runs g back
+//      through them: the walk computes no exponential.  The decay keeps
+//      the forward's form 0.5 ex2(dt A log2(e) + 1).
+//   2. Staging overlaps the scan: each pass streams its chunks through a
+//      ring of cp.async stages (pass 1 eleven chunks ahead, pass 2 five),
+//      each thread's copies fixed for the whole launch; one barrier a
+//      chunk.  B and C arrive in the four state orders of step 4 from a
+//      small kernel that writes them first (scratch [2, B, T, 4, 16]):
+//      staging those orders straight from B and C by 4-byte copies, or
+//      one copy read at permuted indices, was slower (PERF.md).
+//   3. Blocks planned for the card (fused.py:bwd_plan): 8 to 128 channels
+//      a block, a multiple of 8, so that the busiest SM carries the fewest
+//      channels; at Hymba-1.5B's width (12,800 channels a launch) the plan
+//      takes 31 x 4 blocks of 104 channels, one an SM, at
+//      Falcon-Mamba-7B's 64 x 4 of 128, two an SM.  A thread keeps at
+//      most 128 registers (__launch_bounds__); what the card holds of the
+//      blocks at once, the compiled kernel's registers and spills, it
+//      reports itself (selective_scan_fused_bwd_occupancy).
+//   4. Sums across threads: dx and ddt with one butterfly over the
+//      channel's 4 lanes every 4 steps (reduce_scatter); dB and dC with a
+//      butterfly over the warp's 8 channels, 7 shuffles a step (8 values
+//      a lane already fill a reduce-scatter over 8 lanes, so 4 steps at
+//      once take 28: the fewest), issued for 4 steps together, with two
+//      selects a step where a plain one needs fourteen (each lane holds
+//      its states in an order of its own; see the kernel), then over the
+//      block's warps in shared memory in a fixed tree once a chunk, into
+//      per-block partials [B, di blocks, T, 32]; dA stays in registers
+//      over all of T, a partial per batch row [B, di, 16].  Wider blocks
+//      write fewer partials (31 blocks a row at Hymba's width, 100
+//      before).
+//   5. Deterministic: no atomics; a last small kernel
 //      (selective_scan_fused_bwd_reduce_kernel) adds the partials over the
 //      di blocks and the batch in a fixed order, so a rerun gives the same
 //      bits (the sharded train loop's checkpoints are held byte for byte
 //      against the one-device loop's).
-// It costs three exponentials a (t, d, n) (pass 1, the recompute, and the
-// decay in the walk back) and a 7-shuffle butterfly a step, at two blocks
-// an SM (96 KiB of shared memory each): see PERF.md for its time against
-// the byte bound.
 //
 // The launchers allocate nothing and do not synchronise; they launch on
 // the caller's stream and return cudaGetLastError().
@@ -563,77 +584,119 @@ __global__ void __launch_bounds__(kV1MaxThreads, 1)
 // ---------------------------------------------------------- backward --
 constexpr int kBwdLanes = 4;                          // lanes a channel
 constexpr int kBwdStates = kMaxN / kBwdLanes;         // states a lane
-constexpr int kBwdCh = kFusedThreads / kBwdLanes;     // channels a block
-constexpr int kBwdChunk = 32;                         // steps a chunk
-constexpr int kBwdWarps = kFusedThreads / 32;
+constexpr int kBwdChunk = 8;                          // steps a chunk
+constexpr int kBwdMaxThreads = 512;                   // 128 channels a block
+constexpr int kBwdOrders = 4;                         // copies of B and C
+constexpr int kBwdStages1 = 12;                       // pass 1's ring
+constexpr int kBwdStages2 = 6;                        // pass 2's ring
 constexpr int kBC = 2 * kMaxN;                        // dB then dC, a step
 
-struct BwdSmem {
-  float dt[kBwdChunk][kBwdCh];
-  float x[kBwdChunk][kBwdCh];
-  float dy[kBwdChunk][kBwdCh];
-  float b[kBwdChunk][kMaxN];
-  float c[kBwdChunk][kMaxN];
-  float h[kBwdChunk][kBwdStates][kFusedThreads];  // each thread its own
-  float red[kBwdWarps][kBwdChunk][kBC];           // a warp's dB, dC sums
-};
-
-// The decay of the fused kernel, bit for bit: 0.5 * ex2(dt A log2(e) + 1).
-__device__ __forceinline__ float fused_decay(float dtv, float a2) {
-  return 0.5f * ex2(fmaf(dtv, a2, 1.f));
+// One stage of a ring, in floats, for a block of `warps` warps: each
+// warp's dt, x (with `grads` also dy) of a chunk [kBwdChunk][2 or 3][8];
+// B (and C) of the chunk [1 or 2][kBwdChunk][kBwdOrders][16]; with
+// `grads` the state each thread starts the chunk from [threads][4].
+__host__ __device__ constexpr int bwd_stage_floats(int warps, bool grads) {
+  return grads ? warps * (kBwdChunk * 3 * 8 + 32 * kBwdStates) +
+                     2 * kBwdChunk * kBwdOrders * kMaxN
+               : warps * kBwdChunk * 2 * 8 + kBwdChunk * kBwdOrders * kMaxN;
 }
 
-// Sum each of a lane's kV values over the kV channels of its warp (lanes
-// kL apart): the lane of channel `chw` returns the whole sum of value chw
-// (kV - 1 shuffles, halving the values at each of log2(kV) levels).
-template <int kL>
-__device__ __forceinline__ float reduce_scatter_channels(
-    float (&v)[32 / kL], int chw) {
-  constexpr int kV = 32 / kL;
-#pragma unroll
-  for (int half = kV / 2; half >= 1; half /= 2) {
-    const bool up = chw & half;
-#pragma unroll
-    for (int i = 0; i < half; ++i) {
-      const float send = up ? v[i] : v[i + half];
-      const float keep = up ? v[i + half] : v[i];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, half * kL);
-    }
-  }
-  return v[0];
+// A block's dynamic shared memory at `channels` channels, in floats: the
+// larger of the two passes' rings, then the warps' dB, dC sums of two
+// chunks [2][warps][kBwdChunk][32].
+__host__ __device__ constexpr int bwd_smem_floats(int channels) {
+  return (kBwdStages1 * bwd_stage_floats(channels / 8, false) >
+                  kBwdStages2 * bwd_stage_floats(channels / 8, true)
+              ? kBwdStages1 * bwd_stage_floats(channels / 8, false)
+              : kBwdStages2 * bwd_stage_floats(channels / 8, true)) +
+         2 * (channels / 8) * kBwdChunk * kBC;
 }
 
-// One block: kBwdCh channels d0 .. of batch row b over all of T, 4 lanes
-// a channel.  Pass 1 runs the recurrence forward and keeps the state at
-// the end of every chunk but the last in hbuf [B][chunks][di][16].  Pass
-// 2 walks the chunks back: it recomputes the chunk's states from the
-// state before it into shared memory (each thread its own), then runs
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// The decay as the fused kernel forms it, 0.5 * ex2(dt A log2(e) + 1),
+// from dtl = dt log2(e) (a step's, once) and A: the argument rounds apart
+// from the forward's dt (A log2(e)), and no thread keeps A log2(e).
+__device__ __forceinline__ float bwd_decay(float dtl, float av) {
+  return 0.5f * ex2(fmaf(dtl, av, 1.f));
+}
+
+__device__ __forceinline__ float shfl_xor(float v, int mask) {
+  return __shfl_xor_sync(0xffffffffu, v, mask);
+}
+
+// B and C in the backward's four orders: bcp [2][B * T][4][16], copy o of
+// a row holding state s at s ^ o (0 past N).  One thread a value.
+__global__ void selective_scan_fused_bwd_orders_kernel(
+    const float* __restrict__ bm, const float* __restrict__ c,
+    float* __restrict__ bcp, long long rows, int n) {
+  constexpr int kRow = kBwdOrders * kMaxN;
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= 2 * rows * kRow) return;
+  const int which = i >= rows * kRow;           // 0: B, 1: C
+  const long long r = i - which * rows * kRow;
+  const long long row = r / kRow;
+  const int p = static_cast<int>(r % kRow);
+  const int s = (p % kMaxN) ^ (p / kMaxN);
+  bcp[i] = s < n ? (which ? c : bm)[row * n + s] : 0.f;
+}
+
+// One block: blockDim.x / 4 channels d0 .. of batch row b over all of T,
+// 4 lanes a channel, 4 states a lane.  Pass 1 runs the recurrence forward
+// and keeps the state at the end of every 8-step chunk but the last in
+// hbuf [B][chunks][di][16] (in this lane's order of its states, below).
+// Pass 2 walks the chunks back: it recomputes the chunk's 8 states and
+// their decays into registers (the chunk fully unrolled), then runs
 //   g_t = dy_t C_t + decay_{t+1} g_{t+1}
 // back through them, with per step (t, d)
 //   dx = dt sum_n g B          ddt = sum_n g (x B + A decay h_{t-1})
-// (a butterfly over the channel's lanes every 4 steps), and per (t, n)
-// the block's sums over its channels of dB = g dt x and dC = dy h_t (a
-// butterfly over the warp's channels every step, then over the warps in
-// shared memory) into part_bc [B][di blocks][T][32]; dA = sum_t g dt
-// decay h_{t-1} stays in registers until the end, into part_a
-// [B][di][16].  No atomics: the reduce kernel sums the partials in a
-// fixed order.  kVec: the inputs are copied 16 bytes at a time.
+// (reduce_scatter over the channel's lanes every 4 steps), and per (t, n)
+// the block's sums over its channels of dB = g dt x and dC = dy h_t: a
+// butterfly over the warp's 8 channels a step (the 4 steps of a group
+// level by level together) into shared memory,
+// then over the warps, for each chunk once the next chunk's barrier has
+// passed, into part_bc [B][di blocks][T][32]; dA = sum_t g dt decay
+// h_{t-1} stays in registers until the end, into part_a [B][di][16].  Each
+// pass streams its chunks through a ring of stages filled by cp.async up
+// to kBwdStages1 - 1 (pass 1) or kBwdStages2 - 1 (pass 2) chunks ahead of
+// the one scanned; the stage a chunk frees is refilled once it has been
+// scanned, and one barrier a chunk orders both.
+//
+// The butterfly needs no selects but at its last level because each lane
+// holds its states in an order of its own: slot r of the lane of channel
+// chw (0..7 in its warp) holds state 4 lane + (r ^ perm), perm = (bit 2
+// of chw) * 2 + (bit 1 of chw).  At the level that pairs chw with chw ^ 4
+// every lane keeps slots 0, 1 and sends 2, 3, which hold the states its
+// partner keeps; at chw ^ 2 it keeps slot 0 and sends slot 1; at chw ^ 1
+// the pair splits dB from dC.  A lane then holds the warp's sum of one of
+// the step's 32 values.  B and C are staged in the four orders (copy o
+// holds state s at s ^ o), so a lane reads its slots as one float4.
+// kVec: dt, x and dy are copied 16 bytes at a time.  No atomics: the
+// reduce kernel sums the partials in a fixed order.
 template <bool kVec>
-__global__ void __launch_bounds__(kFusedThreads)
+__global__ void __launch_bounds__(kBwdMaxThreads, 1)
     selective_scan_fused_bwd_kernel(
         const float* __restrict__ dt, const float* __restrict__ x,
-        const float* __restrict__ bm, const float* __restrict__ c,
-        const float* __restrict__ a, const float* __restrict__ dy,
-        float* __restrict__ hbuf, float* __restrict__ ddt,
+        const float* __restrict__ bcp, const float* __restrict__ a,
+        const float* __restrict__ dy, float* hbuf, float* __restrict__ ddt,
         float* __restrict__ dx, float* __restrict__ part_bc,
         float* __restrict__ part_a, int t_len, int di, int n) {
   constexpr int kL = kBwdLanes, kS = kBwdStates, kK = kBwdChunk;
-  constexpr int kCh = kBwdCh;
-  extern __shared__ __align__(16) unsigned char bwd_smem[];
-  BwdSmem& sm = *reinterpret_cast<BwdSmem*>(bwd_smem);
+  constexpr int kRow = kBwdOrders * kMaxN;       // B or C floats a step
+  extern __shared__ __align__(16) float bwd_smem[];
+  const int threads = blockDim.x;
+  const int warps = threads / 32;
+  const int chans = threads / kL;                // channels a block
+  float* const ring = bwd_smem;
+  float* const s_red =                           // [2][warps][kK][32]
+      ring + (bwd_smem_floats(chans) - 2 * warps * kK * kBC);
 
   const int b = blockIdx.y;
-  const int d0 = blockIdx.x * kCh;
+  const int d0 = blockIdx.x * chans;
   const int tid = threadIdx.x;
   const int ch = tid / kL;
   const int lane = tid % kL;
@@ -643,141 +706,214 @@ __global__ void __launch_bounds__(kFusedThreads)
   const bool live = d < di;
   const size_t row0 = static_cast<size_t>(b) * t_len;
   const int chunks = (t_len + kK - 1) / kK;
+  const int perm = ((chw >> 2) & 1) * 2 + ((chw >> 1) & 1);
+  const bool keep_c = chw & 1;                  // keeps dC at the last level
+  const int vidx = (keep_c ? kMaxN : 0) + lane * kS + perm;
 
-  float av[kS], a2[kS];
+  float av[kS];
 #pragma unroll
   for (int j = 0; j < kS; ++j) {
-    const int s = lane * kS + j;
+    const int s = lane * kS + (j ^ perm);
     av[j] = (live && s < n) ? a[static_cast<size_t>(d) * n + s] : 0.f;
-    a2[j] = av[j] * kLog2e;
   }
 
-  // Chunk k into shared memory (dt, x, B; with `grads` also dy and C),
-  // steps past T and channels past di zero-filled; one commit group.
-  auto stage = [&](int k, bool grads) {
+  auto hrow = [&](int k) {
+    return hbuf + ((static_cast<size_t>(b) * chunks + k) * di + d) * kMaxN +
+           lane * kS;
+  };
+  // What this thread copies of every chunk, from the chunk's first step:
+  // one 16-byte run of dt, x (dy) of 4 channels (the bulk of a chunk is
+  // kK * chans / 4 runs: threads < threads / 2), or in the scalar route
+  // two channels' floats; B and C rows in the orders go 16 bytes a copy.
+  const int quads = chans / 4;
+  const int v_tt = tid / quads, v_q = tid % quads;
+  const int s_tt[2] = {tid / chans, (tid + threads) / chans};
+  const int s_cc[2] = {tid % chans, (tid + threads) % chans};
+  const size_t rows_all = static_cast<size_t>(gridDim.y) * t_len;
+  // Chunk k into stage st: dt, x, B (with `grads` also dy, C and the state
+  // the chunk starts from), steps past T, channels past di and states past
+  // N zero-filled; one commit group.
+  auto stage = [&](float* st, int k, bool grads) {
     const int t0 = k * kK;
+    const int row = grads ? 24 : 16;             // a step of a warp's slab
     if constexpr (kVec) {
-      constexpr int kQ = kCh / 4;
-      for (int i = tid; i < kK * kQ; i += kFusedThreads) {
-        const int tt = i / kQ, q = (i % kQ) * 4;
-        const bool ok = t0 + tt < t_len && d0 + q < di;
-        const size_t g = ok ? (row0 + t0 + tt) * di + d0 + q : 0;
-        cp_async16(&sm.dt[tt][q], dt + g, ok ? 16 : 0);
-        cp_async16(&sm.x[tt][q], x + g, ok ? 16 : 0);
-        if (grads) cp_async16(&sm.dy[tt][q], dy + g, ok ? 16 : 0);
-      }
-      for (int i = tid; i < kK * 4; i += kFusedThreads) {
-        const int tt = i / 4, q = (i % 4) * 4;
-        const bool ok = t0 + tt < t_len;
-        const size_t g = ok ? (row0 + t0 + tt) * kMaxN + q : 0;
-        cp_async16(&sm.b[tt][q], bm + g, ok ? 16 : 0);
-        if (grads) cp_async16(&sm.c[tt][q], c + g, ok ? 16 : 0);
+      if (v_tt < kK) {
+        const bool ok = t0 + v_tt < t_len && d0 + 4 * v_q < di;
+        const size_t g = ok ? (row0 + t0 + v_tt) * di + d0 + 4 * v_q : 0;
+        float* const at = st + ((v_q / 2) * kK + v_tt) * row + (v_q % 2) * 4;
+        cp_async16(at, dt + g, ok ? 16 : 0);
+        cp_async16(at + 8, x + g, ok ? 16 : 0);
+        if (grads) cp_async16(at + 16, dy + g, ok ? 16 : 0);
       }
     } else {
-      for (int i = tid; i < kK * kCh; i += kFusedThreads) {
-        const int tt = i / kCh, cc = i % kCh;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int tt = s_tt[u], cc = s_cc[u];
         const bool ok = t0 + tt < t_len && d0 + cc < di;
         const size_t g = ok ? (row0 + t0 + tt) * di + d0 + cc : 0;
-        cp_async4(&sm.dt[tt][cc], dt + g, ok ? 4 : 0);
-        cp_async4(&sm.x[tt][cc], x + g, ok ? 4 : 0);
-        if (grads) cp_async4(&sm.dy[tt][cc], dy + g, ok ? 4 : 0);
+        float* const at = st + ((cc / 8) * kK + tt) * row + cc % 8;
+        cp_async4(at, dt + g, ok ? 4 : 0);
+        cp_async4(at + 8, x + g, ok ? 4 : 0);
+        if (grads) cp_async4(at + 16, dy + g, ok ? 4 : 0);
       }
-      for (int i = tid; i < kK * kMaxN; i += kFusedThreads) {
-        const int tt = i / kMaxN, s = i % kMaxN;
-        const bool ok = t0 + tt < t_len && s < n;
-        const size_t g = ok ? (row0 + t0 + tt) * n + s : 0;
-        cp_async4(&sm.b[tt][s], bm + g, ok ? 4 : 0);
-        if (grads) cp_async4(&sm.c[tt][s], c + g, ok ? 4 : 0);
-      }
+    }
+    for (int i = tid; i < kK * kRow / 4; i += threads) {
+      const int tt = i / (kRow / 4), at = (i % (kRow / 4)) * 4;
+      float* const sb = st + warps * kK * row + tt * kRow + at;
+      const bool ok = t0 + tt < t_len;
+      const size_t g = ok ? (row0 + t0 + tt) * kRow + at : 0;
+      cp_async16(sb, bcp + g, ok ? 16 : 0);
+      if (grads)
+        cp_async16(sb + kK * kRow, bcp + rows_all * kRow + g, ok ? 16 : 0);
+    }
+    if (grads) {
+      const bool ok = live && k >= 1;
+      cp_async16(st + warps * kK * row + 2 * kK * kRow + tid * kS,
+                 ok ? hrow(k - 1) : hbuf, ok ? 16 : 0);
     }
     cp_async_commit();
   };
-  // this lane's kS states of channel d at the end of chunk k
-  auto hrow = [&](int k) {
-    return reinterpret_cast<float4*>(
-        hbuf + ((static_cast<size_t>(b) * chunks + k) * di + d) * kMaxN +
-        lane * kS);
-  };
-  // steps tt .. of the chunk in shared memory from the state h
-  auto advance = [&](float (&h)[kS], int tt) {
-    const float dtv = sm.dt[tt][ch];
-    const float dtx = dtv * sm.x[tt][ch];
-    const float4 bq = *reinterpret_cast<const float4*>(&sm.b[tt][lane * kS]);
-    const float bj[kS] = {bq.x, bq.y, bq.z, bq.w};
+  // the block's dB, dC sums of chunk kc from its warps', in order
+  auto sum_warps = [&](int kc) {
+    const float* const red = s_red + (kc & 1) * warps * kK * kBC;
+    for (int i = tid; i < kK * kBC; i += threads) {
+      const int t = kc * kK + i / kBC;
+      if (t >= t_len) continue;
+      constexpr int kWarps = kBwdMaxThreads / 32;
+      float v[kWarps];
 #pragma unroll
-    for (int j = 0; j < kS; ++j)
-      h[j] = fmaf(h[j], fused_decay(dtv, a2[j]), dtx * bj[j]);
+      for (int w = 0; w < kWarps; ++w)
+        v[w] = w < warps ? red[w * kK * kBC + i] : 0.f;
+#pragma unroll
+      for (int h = 1; h < kWarps; h *= 2)
+#pragma unroll
+        for (int w = 0; w < kWarps; w += 2 * h) v[w] += v[w + h];
+      const float sum = v[0];
+      part_bc[((static_cast<size_t>(b) * gridDim.x + blockIdx.x) * t_len +
+               t) * kBC + i % kBC] = sum;
+    }
   };
 
   // pass 1: the state at the end of every chunk but the last
-  float h[kS];
+  {
+    const int scans = chunks - 1;
+    const int size = bwd_stage_floats(warps, false);
+    for (int j = 0; j + 1 < kBwdStages1; ++j)
+      if (j < scans) stage(ring + j * size, j, false);
+      else cp_async_commit();
+    float hr[kS];
 #pragma unroll
-  for (int j = 0; j < kS; ++j) h[j] = 0.f;
-  for (int k = 0; k + 1 < chunks; ++k) {
-    stage(k, false);
+    for (int j = 0; j < kS; ++j) hr[j] = 0.f;
+    for (int k = 0; k < scans; ++k) {
+      cp_async_wait<kBwdStages1 - 2>();
+      __syncthreads();        // chunk k has landed; chunk k - 1 is done
+      const float* const st = ring + (k % kBwdStages1) * size;
+      const float* const sin = st + warp * kK * 16 + chw;
+      const float* const sb = st + warps * kK * 16 + perm * kMaxN + lane * kS;
+#pragma unroll
+      for (int tt = 0; tt < kK; ++tt) {
+        const float dtv = sin[tt * 16];
+        const float dtx = dtv * sin[tt * 16 + 8];
+        const float dtl = dtv * kLog2e;
+        const float4 bq = *reinterpret_cast<const float4*>(sb + tt * kRow);
+        const float bj[kS] = {bq.x, bq.y, bq.z, bq.w};
+#pragma unroll
+        for (int j = 0; j < kS; ++j)
+          hr[j] = fmaf(hr[j], bwd_decay(dtl, av[j]), dtx * bj[j]);
+      }
+      if (live)
+        *reinterpret_cast<float4*>(hrow(k)) =
+            make_float4(hr[0], hr[1], hr[2], hr[3]);
+      const int next = k + kBwdStages1 - 1;
+      if (next < scans) stage(ring + (next % kBwdStages1) * size, next, false);
+      else cp_async_commit();
+    }
     cp_async_wait_all();
-    __syncthreads();
-    for (int tt = 0; tt < kK; ++tt) advance(h, tt);
-    if (live) *hrow(k) = make_float4(h[0], h[1], h[2], h[3]);
-    __syncthreads();                   // every thread done with chunk k
+    __syncthreads();          // the ring is free for pass 2
   }
 
   // pass 2: the chunks back
   float gc[kS], da[kS];                // decay_{t+1} g_{t+1}; dA's sums
 #pragma unroll
   for (int j = 0; j < kS; ++j) gc[j] = da[j] = 0.f;
-  for (int k = chunks - 1; k >= 0; --k) {
-    stage(k, true);
-    float h0[kS] = {0.f, 0.f, 0.f, 0.f};
-    if (k > 0 && live) {
-      const float4 hv = *hrow(k - 1);
-      h0[0] = hv.x, h0[1] = hv.y, h0[2] = hv.z, h0[3] = hv.w;
-    }
-    cp_async_wait_all();
-    __syncthreads();
+  const int size = bwd_stage_floats(warps, true);
+  for (int j = 0; j + 1 < kBwdStages2; ++j)
+    if (j < chunks) stage(ring + j * size, chunks - 1 - j, true);
+    else cp_async_commit();
+  for (int j = 0; j < chunks; ++j) {
+    const int k = chunks - 1 - j;
+    cp_async_wait<kBwdStages2 - 2>();
+    __syncthreads();          // chunk k has landed; chunk k + 1 is done
+    if (j > 0) sum_warps(k + 1);
+    const float* const st = ring + (j % kBwdStages2) * size;
+    const float* const sin = st + warp * kK * 24 + chw;
+    const float* const sb = st + warps * kK * 24 + perm * kMaxN + lane * kS;
+    const float* const sc = sb + kK * kRow;
+    // the state before the chunk, read where a step needs it
+    const float* const sh0 = st + warps * kK * 24 + 2 * kK * kRow + tid * kS;
+    float hs[kK][kS], dec[kK][kS];     // the chunk's states and decays
 #pragma unroll
-    for (int j = 0; j < kS; ++j) h[j] = h0[j];
     for (int tt = 0; tt < kK; ++tt) {
-      advance(h, tt);
+      const float dtv = sin[tt * 24];
+      const float dtx = dtv * sin[tt * 24 + 8];
+      const float dtl = dtv * kLog2e;
+      const float4 bq = *reinterpret_cast<const float4*>(sb + tt * kRow);
+      const float bj[kS] = {bq.x, bq.y, bq.z, bq.w};
 #pragma unroll
-      for (int j = 0; j < kS; ++j) sm.h[tt][j][tid] = h[j];
+      for (int j2 = 0; j2 < kS; ++j2) {
+        dec[tt][j2] = bwd_decay(dtl, av[j2]);
+        hs[tt][j2] = fmaf(tt > 0 ? hs[tt - 1][j2] : sh0[j2], dec[tt][j2],
+                          dtx * bj[j2]);
+      }
     }
+    float* const red = s_red + ((k & 1) * warps + warp) * kK * kBC + vidx;
+#pragma unroll
     for (int grp = kK - kL; grp >= 0; grp -= kL) {
-      float pdx[kL], pddt[kL];
+      float pdx[kL], pddt[kL], vb[kL][kS], vc[kL][kS];
 #pragma unroll
       for (int w = kL - 1; w >= 0; --w) {
         const int tt = grp + w;
-        const float dtv = sm.dt[tt][ch];
-        const float xv = sm.x[tt][ch];
-        const float dyv = sm.dy[tt][ch];
+        const float dtv = sin[tt * 24];
+        const float xv = sin[tt * 24 + 8];
+        const float dyv = sin[tt * 24 + 16];
         const float dtx = dtv * xv;
-        const float4 bq =
-            *reinterpret_cast<const float4*>(&sm.b[tt][lane * kS]);
-        const float4 cq =
-            *reinterpret_cast<const float4*>(&sm.c[tt][lane * kS]);
+        const float4 bq = *reinterpret_cast<const float4*>(sb + tt * kRow);
+        const float4 cq = *reinterpret_cast<const float4*>(sc + tt * kRow);
         const float bj[kS] = {bq.x, bq.y, bq.z, bq.w};
         const float cj[kS] = {cq.x, cq.y, cq.z, cq.w};
         float gb = 0.f, gah = 0.f;
-        float vals[2 * kS];
 #pragma unroll
-        for (int j = 0; j < kS; ++j) {
-          const float hp = tt > 0 ? sm.h[tt - 1][j][tid] : h0[j];
-          const float dec = fused_decay(dtv, a2[j]);
-          const float g = fmaf(dyv, cj[j], gc[j]);
-          const float hd = dec * hp;
-          gb = fmaf(g, bj[j], gb);
-          gah = fmaf(g * av[j], hd, gah);
-          da[j] = fmaf(g * dtv, hd, da[j]);
-          vals[j] = g * dtx;
-          vals[kS + j] = dyv * sm.h[tt][j][tid];
-          gc[j] = dec * g;
+        for (int j2 = 0; j2 < kS; ++j2) {
+          const float hp = tt > 0 ? hs[tt - 1][j2] : sh0[j2];
+          const float g = fmaf(dyv, cj[j2], gc[j2]);
+          gc[j2] = dec[tt][j2] * g;
+          const float q = gc[j2] * hp;       // g decay h_{t-1}
+          gb = fmaf(g, bj[j2], gb);
+          gah = fmaf(av[j2], q, gah);
+          da[j2] = fmaf(dtv, q, da[j2]);
+          vb[w][j2] = g * dtx;
+          vc[w][j2] = dyv * hs[tt][j2];
         }
         pdx[w] = dtv * gb;
         pddt[w] = fmaf(xv, gb, gah);
-        const float r = reduce_scatter_channels<kL>(vals, chw);
-        sm.red[warp][tt][chw < kS ? lane * kS + chw
-                                  : kMaxN + lane * kS + chw - kS] = r;
       }
+      // the group's 4 butterflies over the warp's channels, level by level
+#pragma unroll
+      for (int w = 0; w < kL; ++w) {
+        vb[w][0] += shfl_xor(vb[w][2], 4 * kL);
+        vb[w][1] += shfl_xor(vb[w][3], 4 * kL);
+        vc[w][0] += shfl_xor(vc[w][2], 4 * kL);
+        vc[w][1] += shfl_xor(vc[w][3], 4 * kL);
+      }
+#pragma unroll
+      for (int w = 0; w < kL; ++w) {
+        vb[w][0] += shfl_xor(vb[w][1], 2 * kL);
+        vc[w][0] += shfl_xor(vc[w][1], 2 * kL);
+      }
+#pragma unroll
+      for (int w = 0; w < kL; ++w)
+        red[(grp + w) * kBC] = (keep_c ? vc[w][0] : vb[w][0]) +
+                               shfl_xor(keep_c ? vb[w][0] : vc[w][0], kL);
       const float dxv = reduce_scatter<kL>(pdx, lane);
       const float ddtv = reduce_scatter<kL>(pddt, lane);
       const int t = k * kK + grp + lane;
@@ -786,24 +922,18 @@ __global__ void __launch_bounds__(kFusedThreads)
         ddt[(row0 + t) * di + d] = ddtv;
       }
     }
-    __syncthreads();                   // every warp's sums are in red
-    for (int i = tid; i < kK * kBC; i += kFusedThreads) {
-      const int tt = i / kBC, v = i % kBC;
-      const int t = k * kK + tt;
-      if (t >= t_len) continue;
-      float sum = sm.red[0][tt][v];
-#pragma unroll
-      for (int w = 1; w < kBwdWarps; ++w) sum += sm.red[w][tt][v];
-      part_bc[((static_cast<size_t>(b) * gridDim.x + blockIdx.x) * t_len +
-               t) * kBC + v] = sum;
-    }
-    // the next chunk's stage writes dt .. c, not red, and its barrier
-    // comes before anything writes red again
+    const int next = j + kBwdStages2 - 1;
+    if (next < chunks)
+      stage(ring + (next % kBwdStages2) * size, chunks - 1 - next, true);
+    else cp_async_commit();
   }
+  __syncthreads();                     // every warp's sums of chunk 0
+  sum_warps(0);
   if (live)
-    *reinterpret_cast<float4*>(
-        part_a + (static_cast<size_t>(b) * di + d) * kMaxN + lane * kS) =
-        make_float4(da[0], da[1], da[2], da[3]);
+#pragma unroll
+    for (int j = 0; j < kS; ++j)
+      part_a[(static_cast<size_t>(b) * di + d) * kMaxN + lane * kS +
+             (j ^ perm)] = da[j];
 }
 
 // dB and dC [B][T][N]: the sums of part_bc over the di blocks in order;
@@ -859,6 +989,28 @@ void launch_fused(const float* dt, const float* x, const float* bm,
 
 bool aligned16(const void* p) {
   return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
+}
+
+// The backward's scan kernel for the route `vec`, its dynamic shared
+// memory allowed at `smem` bytes and its carveout at the most shared
+// memory, as every launch and the occupancy query below set them.
+using BwdKernel = decltype(&selective_scan_fused_bwd_kernel<true>);
+
+cudaError_t bwd_kernel(bool vec, int smem, BwdKernel* kernel) {
+  *kernel = vec ? selective_scan_fused_bwd_kernel<true>
+                : selective_scan_fused_bwd_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      *kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(*kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
+bool bwd_channels_ok(int channels) {
+  return channels >= 8 && channels % 8 == 0 &&
+         channels * kBwdLanes <= kBwdMaxThreads;
 }
 
 }  // namespace
@@ -919,44 +1071,80 @@ extern "C" int selective_scan_fused(const void* dt, const void* x,
   return static_cast<int>(cudaGetLastError());
 }
 
+// What the current card makes of the backward's scan kernel at `channels`
+// a block on the route `vec` (1: 16-byte copies of dt, x, dy; 0: 4-byte):
+// its dynamic shared memory a block, the blocks an SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), and the compiled
+// kernel's registers a thread and local (spilled) bytes a thread.
+extern "C" int selective_scan_fused_bwd_occupancy(int channels, int vec,
+                                                  int* smem_bytes,
+                                                  int* blocks_per_sm,
+                                                  int* registers,
+                                                  int* local_bytes) {
+  if (!bwd_channels_ok(channels))
+    return static_cast<int>(cudaErrorInvalidValue);
+  *smem_bytes = 4 * bwd_smem_floats(channels);
+  BwdKernel kernel;
+  cudaError_t err = bwd_kernel(vec != 0, *smem_bytes, &kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, kernel, channels * kBwdLanes, *smem_bytes);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) {
+    *registers = attr.numRegs;
+    *local_bytes = static_cast<int>(attr.localSizeBytes);
+  }
+  return static_cast<int>(err);
+}
+
 // The fused scan's backward: ddt, dx [B, T, di], dB, dC [B, T, N] and dA
 // [di, N] from the forward's inputs and dy [B, T, di], all fp32 and
 // contiguous, 1 <= N <= 16, B <= 65535, T and di >= 1 (checked by the
-// Python wrapper, which also allocates the scratch: hbuf [B, ceil(T /
-// 32), di, 16], part_bc [B, ceil(di / 32), T, 32], part_a [B, di, 16]).
-// Two launches on the stream: the scan, then the fixed-order sums.
+// Python wrapper, which also allocates the scratch: bcp [2, B, T, 4, 16],
+// hbuf [B, ceil(T / 8), di, 16], part_bc [B, ceil(di / channels), T, 32],
+// part_a [B, di, 16]).  channels: a multiple of 8 up to 128
+// (fused.py:bwd_plan); anything else is refused with cudaErrorInvalidValue
+// before a launch.  Three launches on the stream: B and C in the scan's
+// orders, the scan, then the fixed-order sums.
 extern "C" int selective_scan_fused_bwd(
     const void* dt, const void* x, const void* bm, const void* c,
-    const void* a, const void* dy, void* hbuf, void* part_bc, void* part_a,
-    void* ddt, void* dx, void* dbm, void* dc, void* da, int b, int t, int di,
-    int n, void* stream) {
+    const void* a, const void* dy, void* bcp, void* hbuf, void* part_bc,
+    void* part_a, void* ddt, void* dx, void* dbm, void* dc, void* da, int b,
+    int t, int di, int n, int channels, void* stream) {
+  if (!bwd_channels_ok(channels))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = di % 4 == 0 && n == kMaxN && aligned16(dt) &&
-                   aligned16(x) && aligned16(bm) && aligned16(c) &&
-                   aligned16(dy);
-  auto* kernel = vec ? selective_scan_fused_bwd_kernel<true>
-                     : selective_scan_fused_bwd_kernel<false>;
-  const int smem = static_cast<int>(sizeof(BwdSmem));
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  constexpr int kThreads = 256;
+  const long long rows = static_cast<long long>(b) * t;
+  const long long values = 2 * rows * kBwdOrders * kMaxN;
+  selective_scan_fused_bwd_orders_kernel<<<
+      static_cast<unsigned>((values + kThreads - 1) / kThreads), kThreads, 0,
+      s>>>(static_cast<const float*>(bm), static_cast<const float*>(c),
+           static_cast<float*>(bcp), rows, n);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid = grid_of(b, di, kBwdCh);
-  kernel<<<grid, kFusedThreads, smem, s>>>(
+  const bool vec =
+      di % 4 == 0 && aligned16(dt) && aligned16(x) && aligned16(dy);
+  const int smem = 4 * bwd_smem_floats(channels);
+  BwdKernel kernel;
+  err = bwd_kernel(vec, smem, &kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid = grid_of(b, di, channels);
+  kernel<<<grid, channels * kBwdLanes, smem, s>>>(
       static_cast<const float*>(dt), static_cast<const float*>(x),
-      static_cast<const float*>(bm), static_cast<const float*>(c),
-      static_cast<const float*>(a), static_cast<const float*>(dy),
-      static_cast<float*>(hbuf), static_cast<float*>(ddt),
-      static_cast<float*>(dx), static_cast<float*>(part_bc),
-      static_cast<float*>(part_a), t, di, n);
+      static_cast<const float*>(bcp), static_cast<const float*>(a),
+      static_cast<const float*>(dy), static_cast<float*>(hbuf),
+      static_cast<float*>(ddt), static_cast<float*>(dx),
+      static_cast<float*>(part_bc), static_cast<float*>(part_a), t, di, n);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long total = 2LL * b * t * n + static_cast<long long>(di) * n;
-  constexpr int kReduceThreads = 256;
   selective_scan_fused_bwd_reduce_kernel<<<
-      static_cast<unsigned>((total + kReduceThreads - 1) / kReduceThreads),
-      kReduceThreads, 0, s>>>(
-      static_cast<const float*>(part_bc), static_cast<const float*>(part_a),
-      static_cast<float*>(dbm), static_cast<float*>(dc),
-      static_cast<float*>(da), b, t, di, n, static_cast<int>(grid.x));
+      static_cast<unsigned>((total + kThreads - 1) / kThreads), kThreads, 0,
+      s>>>(static_cast<const float*>(part_bc),
+           static_cast<const float*>(part_a), static_cast<float*>(dbm),
+           static_cast<float*>(dc), static_cast<float*>(da), b, t, di, n,
+           static_cast<int>(grid.x));
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,7 +33,9 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "selective_scan.cu"
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {"selective_scan": [_VP] * 5 + [_I] * 6 + [_VP],
               "selective_scan_fused": [_VP] * 6 + [_I] * 5 + [_VP],
-              "selective_scan_fused_bwd": [_VP] * 14 + [_I] * 4 + [_VP]}
+              "selective_scan_fused_bwd": [_VP] * 15 + [_I] * 5 + [_VP],
+              "selective_scan_fused_bwd_occupancy":
+                  [_I] * 2 + [ctypes.POINTER(_I)] * 4}
 MAX_STATE = 16          # N the kernels hold: 16 states a channel
 MAX_BATCH = 65535       # the grid's y dimension
 

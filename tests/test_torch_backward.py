@@ -7,9 +7,9 @@ gradients written out, not autograd through a forward.  Here, on the CPU,
 each is held against the reference's own gradient on seeded inputs:
 
 * the scan's against ``jax.vjp`` of the reference's training scan
-  (``repro.models.layers._ssm_scan_chunked``) at lengths that are no
-  multiple of the backward kernel's 32-step chunk, and T = 1, within 1e-4
-  of each gradient's largest;
+  (``repro.models.layers._ssm_scan_chunked``) at lengths around 32
+  steps, most no multiple of the backward kernel's 8-step chunk, and T =
+  1, within 1e-4 of each gradient's largest;
 * attention's against ``jax.grad`` through the reference's custom-VJP
   flash attention (its Pallas forward in interpret mode), causal,
   non-causal and windowed, Sq != Skv, groups of 1, 2, 5 and 48, D 64 and
@@ -45,6 +45,8 @@ from repro_torch.kernels.selective_scan import fused  # noqa: E402
 from repro_torch.kernels.selective_scan import ops as scan_ops  # noqa
 from repro_torch.kernels.selective_scan.ref import (  # noqa: E402
     selective_scan_fused_bwd_ref)
+from repro_torch.kernels.selective_scan.selective_scan import (  # noqa
+    busiest_sm)
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 DTYPES = {"float32": (torch.float32, jnp.float32),
@@ -81,8 +83,9 @@ def _scan_inputs(seed, b, t, di, n):
     return (dt, x, bm, c, a), dy
 
 
-# (T, the reference's chunk, which must divide T): one step; lengths on
-# neither side of the kernel's 32-step chunk; several reference chunks
+# (T, the reference's chunk, which must divide T): one step; lengths
+# around 32 steps, most no multiple of the kernel's 8-step chunk; several
+# reference chunks
 @pytest.mark.parametrize("t,chunk", [(1, 1), (13, 13), (31, 31), (33, 11),
                                      (37, 37), (40, 8)])
 def test_scan_bwd_ref_matches_reference_vjp(t, chunk):
@@ -117,18 +120,72 @@ def test_scan_bwd_ref_matches_function_on_cpu(t):
 
 
 def test_scan_bwd_scratch_and_wrapper_refuse_cpu():
-    """The backward's scratch as the source lays it out (a state at each
-    32-step chunk's end, each 32-channel block's dB and dC a step, each
-    row's dA), and the kernel wrapper refuses CPU tensors (the ``Function``
-    takes the plain route there)."""
-    assert fused.bwd_scratch(4, 2048, 3200) == {
-        "hbuf": (4, 64, 3200, 16), "part_bc": (4, 100, 2048, 32),
-        "part_a": (4, 3200, 16)}
-    assert fused.bwd_scratch(2, 33, 37)["hbuf"] == (2, 2, 37, 16)
+    """The backward's scratch as the source lays it out (B and C in the
+    scan's four state orders, a state at each 8-step chunk's end, each
+    block's dB and dC a step at the plan's channels a block, each row's
+    dA), and the kernel wrapper and the occupancy query refuse the CPU
+    (the ``Function`` takes the plain route there)."""
+    assert fused.bwd_scratch(4, 2048, 3200, 104) == {
+        "bcp": (2, 4, 2048, 4, 16), "hbuf": (4, 256, 3200, 16),
+        "part_bc": (4, 31, 2048, 32), "part_a": (4, 3200, 16)}
+    assert fused.bwd_scratch(2, 33, 37, 8)["hbuf"] == (2, 5, 37, 16)
+    assert fused.bwd_scratch(2, 32, 37, 8)["part_bc"] == (2, 5, 32, 32)
     args, dy = _scan_inputs(0, 1, 4, 8, 16)
     with pytest.raises(ValueError, match="CUDA"):
         fused.selective_scan_fused_bwd(*map(torch.from_numpy, args),
                                        torch.from_numpy(dy))
+    with pytest.raises(ValueError, match="card"):
+        fused.bwd_occupancy(104, torch.device("cpu"))
+
+
+H100_SMS = 132
+
+
+# (B, di, channels a block, blocks the busiest SM runs): Hymba-1.5B's
+# and Falcon-Mamba-7B's prefill widths, B 1 at Falcon's, a narrow layer
+@pytest.mark.parametrize("b,di,channels,per_sm", [
+    (4, 3200, 104, 1), (4, 8192, 128, 2), (1, 8192, 64, 1), (2, 96, 8, 1)])
+def test_scan_bwd_plan_model_widths(b, di, channels, per_sm):
+    """``bwd_plan`` on 132 SMs: the channels a block it takes, the blocks
+    the busiest SM runs (its grid spread evenly: what the card holds of
+    them at once is the card's to say, ``bwd_occupancy``), and that no
+    other channels a block give the busiest SM fewer channels."""
+    p = fused.bwd_plan(b, di, H100_SMS)
+    assert (p.channels, p.sm_blocks) == (channels, per_sm)
+    assert p.threads == 4 * channels and p.threads % 32 == 0
+    assert p.grid == (-(-di // channels), b)
+    load = busiest_sm(b, di, channels, H100_SMS)
+    assert load == per_sm * channels
+    assert all(busiest_sm(b, di, ch, H100_SMS) >= load
+               for ch in fused.BWD_CHANNELS)
+
+
+@pytest.mark.parametrize("channels,per_sm", [(8, 13), (32, 4), (56, 2),
+                                             (64, 2), (104, 1), (128, 1)])
+def test_scan_bwd_blocks_an_sm(channels, per_sm):
+    """The blocks the busiest SM runs at Hymba-1.5B's width (B 4, di
+    3,200) on 132 SMs, at each channels a block: the grid's blocks spread
+    evenly, so no SM runs more than one block over the mean."""
+    p = fused.bwd_shape(4, 3200, channels, H100_SMS)
+    blocks = p.grid[0] * p.grid[1]
+    assert p.sm_blocks == per_sm
+    assert (per_sm - 1) * H100_SMS < blocks <= per_sm * H100_SMS
+
+
+@pytest.mark.parametrize("b,di,channels", [(4, 3200, 12), (4, 3200, 0),
+                                           (4, 3200, 136),
+                                           (65536, 3200, 104),
+                                           (0, 3200, 104), (4, 0, 104)])
+def test_scan_bwd_shape_refuses(b, di, channels):
+    """Channels a block the launcher refuses (no multiple of 8, past 128)
+    and grids the card does not take (B past 65,535 or 0, di 0) raise."""
+    with pytest.raises(ValueError):
+        fused.bwd_shape(b, di, channels, H100_SMS)
+
+
+def test_scan_bwd_plan_refuses_past_the_grid():
+    with pytest.raises(ValueError, match="rows"):
+        fused.bwd_plan(65536, 3200, H100_SMS)
 
 
 # ----------------------------------------------------------------------

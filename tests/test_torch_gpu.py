@@ -474,12 +474,22 @@ BWD_WIDE = [(HYMBA_FLASH + (2048,), True, None),
 BWD_CASES = ([(shape, causal, window) for shape in BWD_FLASH
               for causal, window in MASKS] + BWD_WIDE)
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-# (b, t, di, n, mode): T 1 and around the backward's 32-step chunk, di no
-# multiple of its 32 channels, N 5 (4-byte copies), every decay 0, every
-# other decay 1, Hymba-1.5B's width
+# (b, t, di, n, mode): T 1, around 32 and 16 steps, and one below, at and
+# one above the backward's 8-step chunk; di no multiple of the plan's
+# channels a block (1,000 and 3,000 at B 2: 16 and 48), di odd and dt, x,
+# dy one float past a 16-byte boundary ("offset": the 4-byte copies), N 5,
+# every decay 0, every other decay 1, Hymba-1.5B's width
 BWD_SCAN = [(2, 1, 200, 16, "model"), (2, 33, 96, 16, "model"),
             (3, 70, 37, 5, "model"), (2, 100, 1000, 16, "underflow"),
-            (2, 64, 96, 16, "zero_odd_steps"), (1, 300, 3200, 16, "model")]
+            (2, 64, 96, 16, "zero_odd_steps"), (1, 300, 3200, 16, "model"),
+            (2, 15, 96, 16, "model"), (2, 16, 96, 16, "model"),
+            (2, 17, 96, 16, "model"), (2, 7, 96, 16, "model"),
+            (2, 8, 96, 16, "model"), (2, 9, 96, 16, "model"),
+            (2, 47, 3000, 16, "model"),
+            (2, 40, 200, 16, "offset"), (1, 33, 35, 3, "offset")]
+# channels a block of the backward's launch, whatever its plan, at di no
+# multiple of any of them
+BWD_SCAN_CHANNELS = (8, 32, 56, 104, 128)
 
 
 def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -520,9 +530,14 @@ def test_flash_backward_matches_plain(card, shape, causal, window, dtype):
 def test_scan_backward_matches_plain(card, b, t, di, n, mode):
     """The five gradients of the scan's backward kernels against
     ``selective_scan_fused_bwd_ref``, and a second launch bit for bit."""
-    args = _torch(*_edge_inputs(21, b, t, di, n, mode), dev=card)
+    args = _torch(*_edge_inputs(21, b, t, di, n,
+                                "model" if mode == "offset" else mode),
+                  dev=card)
     dy = torch.from_numpy(np.random.default_rng(22).standard_normal(
         (b, t, di)).astype(np.float32)).to(card)
+    if mode == "offset":
+        args[0], args[1], dy = _offset(args[0]), _offset(args[1]), \
+            _offset(dy)
     got = fused_kernel.selective_scan_fused_bwd(*args, dy)
     again = fused_kernel.selective_scan_fused_bwd(*args, dy)
     want = selective_scan_fused_bwd_ref(*args, dy)
@@ -531,6 +546,46 @@ def test_scan_backward_matches_plain(card, b, t, di, n, mode):
                              again):
         assert torch.equal(g, a), name
         assert _rel(g, w) <= 1e-4, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("channels", BWD_SCAN_CHANNELS)
+def test_scan_backward_channel_options(card, channels):
+    """The backward launched with ``channels`` a block, whatever its plan,
+    at ragged T and di: the plain backward's gradients, bit for bit from
+    one launch to the next."""
+    b, t, di = 2, 45, 1004
+    args = _torch(*_fused_inputs(23, b, t, di, 16), dev=card)
+    dy = torch.from_numpy(np.random.default_rng(24).standard_normal(
+        (b, t, di)).astype(np.float32)).to(card)
+    p = fused_kernel.bwd_shape(b, di, channels,
+                               fused_kernel.sm_count(args[0].device))
+    got = fused_kernel.bwd_launch(p, *args, dy)
+    again = fused_kernel.bwd_launch(p, *args, dy)
+    want = selective_scan_fused_bwd_ref(*args, dy)
+    torch.cuda.synchronize()
+    for name, g, w, a in zip(("ddt", "dx", "dB", "dC", "dA"), got, want,
+                             again):
+        assert torch.equal(g, a), name
+        assert _rel(g, w) <= 1e-4, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("channels", BWD_SCAN_CHANNELS)
+def test_scan_backward_occupancy(card, channels):
+    """What the card reports for the backward's compiled scan kernel at
+    ``channels`` a block, on both routes: a block fits (its shared memory
+    within the 227 KiB a block may take, at least one block an SM) within
+    the 128 registers a thread of its launch bounds; and the SMs hold all
+    of the plan's blocks at Hymba-1.5B's width at once."""
+    for vec in (True, False):
+        occ = fused_kernel.bwd_occupancy(channels, card, vec)
+        assert 0 < occ.smem_bytes <= 232448, occ
+        assert occ.blocks_per_sm >= 1, occ
+        assert occ.registers <= 128, occ
+    p = fused_kernel.bwd_plan(4, 3200, fused_kernel.sm_count(card))
+    assert fused_kernel.bwd_occupancy(p.channels, card).blocks_per_sm \
+        >= p.sm_blocks
 
 
 @pytest.mark.gpu

@@ -171,10 +171,11 @@ H100_SMS = 132
 # then the fused kernel's edges
 PHASE9 = ([(1, 64, 256, 8), (2, 128, 512, 16), (1, 256, 256, 4)]
           + [(2, t, di, 16) for t in (1, 1000, 2048) for di in (3200, 8192)]
-          + [(2, t, 3000, 16) for t in (1, 3, 4, 5, 15, 16, 17, 31, 32,
-                                        33)]
+          + [(2, t, 3000, 16) for t in (1, 3, 4, 5, 7, 8, 9, 15, 16, 17,
+                                        31, 32, 33)]
           + [(3, 70, 37, 16), (2, 40, 1000, 1), (2, 40, 1000, 5),
-             (2, 40, 1000, 8), (2, 100, 1000, 16), (1, 2048, 8192, 16)])
+             (2, 40, 1000, 8), (2, 100, 1000, 16), (4, 48, 3208, 16),
+             (1, 2048, 8192, 16)])
 
 
 def _check_plan(p, b, di):

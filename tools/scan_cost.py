@@ -3,7 +3,8 @@
 shapes.
 
     python3 tools/scan_cost.py [--src DIR] [--reps N] [--seed S] [--probe]
-                               [--v1-options CHxST,...]
+                               [--v1-options CHxST,...] [--parts P,...]
+                               [--bwd-channels CH,...]
 
 Seeded inputs (dt > 0, A < 0, fp32, as a Mamba layer feeds the scan) at
 the two shapes a model prefill launches, one fused scan a Mamba layer:
@@ -29,11 +30,30 @@ a block at the stages ``plan`` would give them) and on its scalar route
 each; an option the launch refuses (a ring past a block's shared memory)
 is reported as refused.
 
-Beside each time: the byte bound (inputs read once, y written once, over
-3.35 TB/s) and the special-function-unit term, one exponential a
-(t, d, n): B * T * di * N over SMs x 16 a clock x the SM's maximum clock
-(SMs from ``torch.cuda.get_device_properties``, the clock from
-``nvidia-smi --query-gpu=clocks.max.sm``).
+The fused scan's backward (``bwd``; dy seeded too) is checked against
+``selective_scan_fused_bwd_ref``, each of its five gradients within 1e-4
+of that gradient's largest, then timed the same way through its wrapper
+(its kernels); beside it ``peak_bytes``, what one call allocates at its
+peak (its gradients and scratch), from ``torch.cuda.max_memory_allocated``.
+Where the checkout's fused module has ``bwd_plan`` and ``bwd_shape``,
+its plan is printed beside it (channels a block, grid) and it is checked
+and timed at other channels a block too (``bwd_by_channels``: 32, 64,
+104, 128 and the plan's, or ``--bwd-channels`` and the plan's); where it
+has ``bwd_occupancy``, each of those
+carries what the card reports for the compiled kernel (shared memory a
+block, blocks an SM, registers and spilled bytes a thread) and the
+waves its grid makes at those blocks an SM.
+
+Beside each time: the byte bound (inputs read once, outputs written
+once, over 3.35 TB/s; the backward's as ``chip_smoke.py``'s
+``scan_bwd_bound``: dt, x, dy, B, C, A read, their gradients written)
+and the special-function-unit term: one exponential a (t, d, n) for the
+forwards, BWD_EXPONENTIALS = 2 for the backward (its pass 1 and its
+recompute; the walk back reuses the recompute's decays), each B * T * di
+* N over SMs x 16 a clock x the SM's maximum clock (SMs from
+``torch.cuda.get_device_properties``, the clock from ``nvidia-smi
+--query-gpu=clocks.max.sm``).  ``--parts`` names what to time, of
+``fused``, ``v1`` and ``bwd`` (default all).
 
 Prints the card's name and power limit, then one JSON line.  ``--src``
 names the ``src`` directory to import ``repro_torch`` from (default: this
@@ -64,6 +84,8 @@ ROOT = Path(__file__).resolve().parents[1]
 HBM_BYTES_PER_S = 3.35e12
 SFU_PER_CLOCK = 16          # exponentials an SM returns a clock (cc 9.0)
 TOL = 1e-4
+BWD_EXPONENTIALS = 2        # the backward's exponentials a (t, d, n)
+BWD_CHANNELS = (32, 64, 104, 128)
 SHAPES = {"falcon": (4, 2048, 8192, 16), "hymba": (4, 2048, 3200, 16)}
 
 
@@ -232,7 +254,15 @@ def main() -> int:
                     help="measure what bounds the fused kernel instead")
     ap.add_argument("--v1-options", default=None,
                     help="v1's launch options to time, e.g. 256x2,128x4")
+    ap.add_argument("--parts", default="fused,v1,bwd",
+                    help="what to time, of fused, v1 and bwd")
+    ap.add_argument("--bwd-channels", default=None,
+                    help="the backward's channels a block to time beside "
+                    "its plan's, e.g. 64,128 (empty: the plan's alone)")
     args = ap.parse_args()
+    parts = set(args.parts.split(","))
+    bwd_channels = (BWD_CHANNELS if args.bwd_channels is None else
+                    [int(c) for c in args.bwd_channels.split(",") if c])
     sys.path.insert(0, str(Path(args.src).resolve()))
 
     import torch
@@ -240,7 +270,8 @@ def main() -> int:
     from repro_torch.kernels.selective_scan import fused as fk
     from repro_torch.kernels.selective_scan import selective_scan as sk
     from repro_torch.kernels.selective_scan.ref import (
-        selective_scan_fused_ref, selective_scan_ref)
+        selective_scan_fused_bwd_ref, selective_scan_fused_ref,
+        selective_scan_ref)
 
     if not torch.cuda.is_available():
         print("scan_cost: no CUDA card visible", file=sys.stderr)
@@ -282,22 +313,9 @@ def main() -> int:
                 "ok": bool((err <= TOL + TOL * want.abs()).all()),
                 "ms": bracketed_ms(fn, call)}
 
-    out = {"src": str(Path(args.src)), "card": card, "sms": sms,
-           "max_sm_mhz": max_mhz}
-    if args.probe:
-        print(json.dumps({**out, **probe(torch, sms, max_mhz)}), flush=True)
-        return 0
-    for name, (b, t, di, n) in SHAPES.items():
-        gen.manual_seed(args.seed)
-        dt = torch.rand((b, t, di), generator=gen, device=dev) * 0.2
-        x = torch.randn((b, t, di), generator=gen, device=dev)
-        bm = torch.randn((b, t, n), generator=gen, device=dev) * 0.3
-        c = torch.randn((b, t, n), generator=gen, device=dev)
-        a = -torch.rand((di, n), generator=gen, device=dev) * 2 - 0.05
-        call = (dt, x, bm, c, a)
+    def fused_rows(b, di, call):
         want = selective_scan_fused_ref(*call)
-        row = {"shape": [b, t, di, n],
-               "fused": checked(fk.selective_scan_fused, call, want)}
+        row = {"fused": checked(fk.selective_scan_fused, call, want)}
         if hasattr(fk, "plan") and hasattr(fk, "shape"):
             row["fused"]["lanes"] = fk.plan(b, di, sms).lanes
 
@@ -310,10 +328,14 @@ def main() -> int:
             row["fused_by_lanes"] = {
                 str(lanes): checked(forced(lanes), call, want)
                 for lanes in fk.LANES}
+        return row
+
+    def v1_rows(b, di, call):
+        dt, x, bm, c, a = call
         bx = (dt * x)[..., None] * bm[:, :, None, :]
         v1_call = (dt, bx, c, a)
         v1_want = selective_scan_ref(*v1_call)
-        row["v1"] = checked(sk.selective_scan, v1_call, v1_want)
+        row = {"v1": checked(sk.selective_scan, v1_call, v1_want)}
         if hasattr(sk, "plan") and hasattr(sk, "shape"):
             p = sk.plan(b, di, sms)
             row["v1"]["plan"] = {
@@ -340,25 +362,100 @@ def main() -> int:
             row["v1_scalar"] = checked(sk.selective_scan,
                                        (dt, shifted, c, a), v1_want)
             del shifted
-        else:
-            del bx
-        del v1_call, v1_want
+        return row
+
+    def bwd_checked(fn, call, want):
+        got = fn(*call)
+        errs = {name: float((g - w).abs().max()) / float(w.abs().max())
+                for name, g, w in zip(("ddt", "dx", "dB", "dC", "dA"), got,
+                                      want)}
+        again = fn(*call)
+        same = all(torch.equal(g, h) for g, h in zip(got, again))
+        del got, again
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn(*call)
+        torch.cuda.synchronize()
+        return {"rel_err": errs,
+                "ok": all(e <= TOL for e in errs.values()),
+                "bitwise_repeat": same,
+                "peak_bytes": torch.cuda.max_memory_allocated() - before,
+                "ms": bracketed_ms(fn, call)}
+
+    def bwd_occupancy(p):
+        if not hasattr(fk, "bwd_occupancy"):
+            return {}
+        occ = fk.bwd_occupancy(p.channels, dev)
+        return {**occ._asdict(), "waves": p.grid[0] * p.grid[1]
+                / (sms * occ.blocks_per_sm)}
+
+    def bwd_rows(b, di, call, dy):
+        bcall = (*call, dy)
+        want = selective_scan_fused_bwd_ref(*bcall)
+        row = {"bwd": bwd_checked(fk.selective_scan_fused_bwd, bcall, want)}
+        if hasattr(fk, "bwd_plan") and hasattr(fk, "bwd_shape"):
+            p = fk.bwd_plan(b, di, sms)
+            row["bwd"]["plan"] = {
+                "channels": p.channels, "threads": p.threads,
+                "grid": list(p.grid), **bwd_occupancy(p)}
+            row["bwd_by_channels"] = {}
+            for ch in sorted({*bwd_channels, p.channels}):
+                q = fk.bwd_shape(b, di, ch, sms)
+                row["bwd_by_channels"][str(ch)] = {
+                    **bwd_checked(lambda *cl: fk.bwd_launch(q, *cl), bcall,
+                                  want),
+                    **bwd_occupancy(q)}
+        del want
+        return row
+
+    out = {"src": str(Path(args.src)), "card": card, "sms": sms,
+           "max_sm_mhz": max_mhz}
+    if args.probe:
+        print(json.dumps({**out, **probe(torch, sms, max_mhz)}), flush=True)
+        return 0
+    for name, (b, t, di, n) in SHAPES.items():
+        gen.manual_seed(args.seed)
+        dt = torch.rand((b, t, di), generator=gen, device=dev) * 0.2
+        x = torch.randn((b, t, di), generator=gen, device=dev)
+        bm = torch.randn((b, t, n), generator=gen, device=dev) * 0.3
+        c = torch.randn((b, t, n), generator=gen, device=dev)
+        a = -torch.rand((di, n), generator=gen, device=dev) * 2 - 0.05
+        call = (dt, x, bm, c, a)
+        row = {"shape": [b, t, di, n]}
+        if "fused" in parts:
+            row.update(fused_rows(b, di, call))
+        if "v1" in parts:
+            row.update(v1_rows(b, di, call))
+        if "bwd" in parts:
+            dy = torch.randn((b, t, di), generator=gen, device=dev)
+            row.update(bwd_rows(b, di, call, dy))
+            del dy
         bytes_fused = 4 * (3 * b * t * di + 2 * b * t * n + di * n)
         bytes_v1 = 4 * (2 * b * t * di + b * t * di * n + b * t * n
                         + di * n)
+        bytes_bwd = 4 * (5 * b * t * di + 4 * b * t * n + 2 * di * n)
         row["bound_ms"] = 1e3 * bytes_fused / HBM_BYTES_PER_S
         row["v1_bound_ms"] = 1e3 * bytes_v1 / HBM_BYTES_PER_S
+        row["bwd_bound_ms"] = 1e3 * bytes_bwd / HBM_BYTES_PER_S
         row["bound_sfu_ms"] = 1e3 * b * t * di * n / (
             sms * SFU_PER_CLOCK * max_mhz * 1e6)
-        row["fused"]["share_of_bound"] = row["bound_ms"] / row["fused"]["ms"]
+        row["bwd_bound_sfu_ms"] = BWD_EXPONENTIALS * row["bound_sfu_ms"]
+        if "fused" in row:
+            row["fused"]["share_of_bound"] = (row["bound_ms"]
+                                              / row["fused"]["ms"])
+        if "bwd" in row:
+            row["bwd"]["share_of_bound"] = (row["bwd_bound_ms"]
+                                            / row["bwd"]["ms"])
         out[name] = row
-        del call, want, dt, x, bm, c, a
+        del call, dt, x, bm, c, a
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
 
     def bad(r):
-        return isinstance(r, dict) and (r.get("ok") is False or any(
-            bad(v) for v in r.values()))
+        return isinstance(r, dict) and (
+            r.get("ok") is False or r.get("bitwise_repeat") is False
+            or any(bad(v) for v in r.values()))
     if bad(out):
         print("scan_cost: a kernel outside tolerance", file=sys.stderr)
         return 1
