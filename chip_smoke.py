@@ -140,7 +140,8 @@ which launch it alone, run, and are waited for before phase 5), then:
    the flash row;
 13. training identity: Qwen3-1.7B (2 layers), Falcon-Mamba-7B (2) and
    Hymba-1.5B (3) at full width, fp32 from one seeded ``init_state``,
-   TF32 off, SyntheticLM batch 2 x 256: one ``make_train_step`` step with
+   TF32 off, SyntheticLM batch 2 x 128 (Hymba, whose optimizer is also
+   held, 2 x 256): one ``make_train_step`` step with
    remat on at grad_accum 1 and 2 on the card, each against one step on
    the CPU at grad_accum 1 (the same arithmetic, fp32 sums in another
    order), the launch counts zeroed just before and read just after
@@ -311,7 +312,22 @@ which launch it alone, run, and are waited for before phase 5), then:
    with CUDA events beside the bound (paged at G 48: the larger of its
    bytes and its fp32 operations), the plain version and
    ``scaled_dot_product_attention`` (over the gathered pages for paged):
-   the flash and paged rows' ``by_model`` entries and ``by_path`` counts.
+   the flash and paged rows' ``by_model`` entries and ``by_path`` counts;
+21. the repo's four examples through the port's twins
+   (``examples/*_torch.py``), each ``main`` on the card with the launch
+   counts zeroed just before it and read just after: quickstart and
+   ycsb_demo ``--quick`` print the reference example's lines byte for
+   byte (``tests/data/examples_reference``), every read probed by the
+   pairs kernel; serve_paged (qwen3-1.7b smoke, pages of 8 positions,
+   weights drawn on the CPU from seed 0) prefills on flash and decodes on
+   paged, its counters those of a CPU run of the twin; train_lm at its
+   default size (D 32, bf16) prints the reference example's model and
+   restarts lines, its loss falls, and every attention call runs flash's
+   forward and both backward kernels on the tensor cores.  The first call
+   of each kernel in each twin (flash's forward and backward, paged) is
+   kept and held against its plain version (attention 2e-5 / 2e-2, the
+   backward 1e-4 / 2e-2 of each gradient's largest).  The twins'
+   launches join the Bloom-pairs, flash, paged and flash-backward rows.
 
 TF32 is off for matmuls and cuDNN (the defaults for matmuls), so fp32
 products on the card are full fp32.  Each phase prints one JSON line; the
@@ -327,6 +343,7 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import importlib.util
 import json
 import shutil
 import subprocess
@@ -428,7 +445,7 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
 SERVE_REQUESTS = 24
 SERVE_RUN_REQUESTS = 12
 SERVE_NEW_TOKENS = 64
-ALL_PHASES = tuple(range(1, 21))
+ALL_PHASES = tuple(range(1, 22))
 
 
 def emit(**obj) -> None:
@@ -1231,6 +1248,13 @@ def flash_bwd_errors(q, k, v, causal, window) -> dict:
     dout = torch.randn((b, sq, h, d), generator=torch.Generator(q.device)
                        .manual_seed(sq), device=q.device,
                        dtype=torch.float32).to(q.dtype).transpose(1, 2)
+    return flash_bwd_held(q, k, v, out, lse, dout, causal, window)
+
+
+def flash_bwd_held(q, k, v, out, lse, dout, causal, window) -> dict:
+    """The backward kernels on one call (the forward's out and lse, and
+    dout) against ``attention_bwd_ref`` and autograd, and a second launch
+    bit for bit: ``flash_bwd_errors``'s record."""
     got = flash_kernel.flash_attention_bwd(q, k, v, out, lse, dout,
                                            causal=causal, window=window)
     again = flash_kernel.flash_attention_bwd(q, k, v, out, lse, dout,
@@ -2589,9 +2613,14 @@ def merge_flash(kernels: list, by_model: dict, variants: dict) -> None:
 # ----------------------------------------------------------------------
 # phases 13 and 14: training
 # ----------------------------------------------------------------------
-# (model, layers in phase 13); batch x tokens of each phase 13 step
-TRAIN_IDENTITY = [("qwen3-1.7b", 2), ("falcon-mamba-7b", 2),
-                  ("hymba-1.5b", 3)]
+# (model, layers, tokens a sequence in phase 13): Qwen3's and
+# Falcon-Mamba's cut from 256 to 128 for the script's time limit (their
+# CPU steps took 66 of the phase's ~200 s); Hymba's, whose AdamW update is
+# held too, stays at 256 (at 128 one element's masters cancel to where one
+# fp32 step is two bf16 steps: ROADMAP §3).  TRAIN_BATCH x TRAIN_SEQ is
+# also phases 15 and 19's batch
+TRAIN_IDENTITY = [("qwen3-1.7b", 2, 128), ("falcon-mamba-7b", 2, 128),
+                  ("hymba-1.5b", 3, 256)]
 TRAIN_BATCH, TRAIN_SEQ = 2, 256
 TRAIN_TC = TrainConfig(total_steps=10, warmup_steps=2)
 TRAIN_TOL = 1e-4
@@ -2723,12 +2752,12 @@ def phase_train_identity(card_dev: str = "cuda") -> dict:
 
     def defer(cond: bool, what: str) -> None:
         pending.append((cond, what))
-    for name, layers in TRAIN_IDENTITY:
+    for name, layers, seq in TRAIN_IDENTITY:
         cfg = dataclasses.replace(get_config(name), num_layers=layers)
         base = init_state(cfg, seed=0, device="cpu", dtype=torch.float32)
-        batch = SyntheticLM(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+        batch = SyntheticLM(cfg.vocab_size, TRAIN_BATCH, seq,
                             seed=13).batch_at(0)
-        r = {"layers": layers, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+        r = {"layers": layers, "batch": [TRAIN_BATCH, seq],
              "params": sum(p.numel() for p in base["model"].parameters())}
         # one CPU oracle a model, the full batch in one micro-batch: both
         # card runs are held against it (accumulating over micro-batches
@@ -4543,12 +4572,16 @@ def card_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((g - w).abs().max()) / (scale or 1.0)
 
 
+def bf16_line(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 tensor's bit patterns on one integer line: adjacent numbers
+    1 apart, -0 and +0 equal."""
+    b = t.view(torch.int16).int()
+    return torch.where(b < 0, -32768 - b, b)
+
+
 def bf16_steps(got: torch.Tensor, want: torch.Tensor) -> int:
     """Largest distance in bf16 steps between two bf16 tensors."""
-    def line(t):
-        b = t.view(torch.int16).int()
-        return torch.where(b < 0, -32768 - b, b)
-    return int((line(got) - line(want)).abs().max())
+    return int((bf16_line(got) - bf16_line(want)).abs().max())
 
 
 def local(t: torch.Tensor) -> torch.Tensor:
@@ -4992,6 +5025,183 @@ def merge_dense_engine(kernels: list, engine: dict, entry: dict) -> None:
         row["launches"] += n
 
 
+# ----------------------------------------------------------------------
+# phase 21: the repo's four examples through the port's twins
+# ----------------------------------------------------------------------
+EXAMPLE_REFERENCE = ROOT / "tests" / "data" / "examples_reference"
+
+
+# (twin, its arguments, the file of the reference example's lines it is
+# held against (serve_paged: a CPU run of the twin), the kernels it must
+# launch); ycsb_demo at --quick and train_lm at its default size, for the
+# script's time limit (at their full sizes they take ~66 s and ~82 s on an
+# H100)
+EXAMPLE_RUNS = [
+    ("quickstart", [], "quickstart.txt", ("bloom_probe_pairs",)),
+    ("ycsb_demo", ["--quick"], "ycsb_demo_quick.txt",
+     ("bloom_probe_pairs",)),
+    ("serve_paged", [], None, ("flash_attention", "paged_attention")),
+    ("train_lm", [], "train_lm.txt",
+     ("flash_attention", "flash_attention_bwd")),
+]
+# the wrappers whose first call (of each window) in a twin is kept and
+# held against its plain version
+FIRST_CALLS = {
+    "flash_attention_fwd": (flash_kernel, "flash_attention_fwd"),
+    "flash_attention_bwd": (flash_kernel, "flash_attention_bwd"),
+    "paged_attention_decode": (paged_kernel, "paged_attention_decode")}
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a fresh module (a twin: ``<name>`` ends
+    in ``_torch``)."""
+    spec = importlib.util.spec_from_file_location(
+        f"examples_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def wall_free(lines: list) -> list:
+    """serve_paged's printed lines without the wall-clock tokens a
+    second."""
+    return [line.split(" (")[0] if "tok/s wall" in line else line
+            for line in lines]
+
+
+def check_twin(name: str, out, expected) -> dict:
+    """Hold one twin's card run against the reference example's lines (or,
+    for serve_paged, a CPU run of the twin); what was compared."""
+    tag = f"phase 21 {name}"
+    if name in ("quickstart", "ycsb_demo"):
+        check("\n".join(out).splitlines() == expected,
+              f"{tag}: the reference example's lines")
+        return {"lines_equal_reference": True}
+    if name == "serve_paged":
+        cpu = load_example(f"{name}_torch").main(["--device", "cpu"])
+        same = sum(out["tokens"][rid] == toks
+                   for rid, toks in cpu["tokens"].items())
+        check(out["stats"] == cpu["stats"]
+              and wall_free(out["lines"]) == wall_free(cpu["lines"]),
+              f"{tag}: counters those of the CPU run")
+        check(same == len(cpu["tokens"]) == len(out["tokens"]),
+              f"{tag}: every request's tokens those of the CPU run")
+        return {"counters_equal_cpu": True, "cpu_seconds": cpu["wall_s"],
+                "requests_with_cpu_tokens": same,
+                "requests": len(cpu["tokens"])}
+    lines = [line for line in out["lines"] if not line.startswith("[train]")]
+    check(lines[:2] == expected, f"{tag}: the reference example's model and "
+          "restarts lines")
+    check(out["losses"][-1][1] < out["losses"][0][1], f"{tag}: loss falls")
+    return {"model_and_restarts_equal_reference": True,
+            "losses": out["losses"]}
+
+
+@torch.no_grad()
+def hold_first_calls(calls: dict, tag: str) -> tuple:
+    """Each kept call through its kernel against its plain version:
+    attention within TOL, the backward within FLASH_BWD_TOL of each
+    gradient's largest (of the plain backward and of autograd) and bit for
+    bit from one launch to the next.  Returns (a record, the checks as
+    (condition, what) pairs)."""
+    out, checks = {}, []
+    for (q, k, v), kw in calls["flash_attention_fwd"].values():
+        causal, window = kw.get("causal", True), kw.get("window")
+        err, ok = within(flash_kernel.flash_attention_fwd(
+            q, k, v, causal=causal, window=window),
+            attention_plain(q, k, v, causal, window), TOL[q.dtype])
+        out[f"flash_attention_window{window}"] = {
+            "q": list(q.shape), "kv_heads": k.shape[1],
+            "dtype": str(q.dtype).split(".")[1], "causal": causal,
+            "variant": flash_kernel.variant(q.dtype, q.shape[3]),
+            "max_abs_err": err}
+        checks.append((ok, f"{tag}: the first flash call (window {window}) "
+                       f"within {TOL[q.dtype]} of plain"))
+    for args, kw in calls["flash_attention_bwd"].values():
+        window = kw.get("window")
+        r = flash_bwd_held(*args, kw.get("causal", True), window)
+        out[f"flash_attention_bwd_window{window}"] = {
+            "q": list(args[0].shape), **r}
+        checks.append((r["ok"] and r["bitwise_repeat"], f"{tag}: the first "
+                       f"flash backward (window {window}) within "
+                       f"{FLASH_BWD_TOL[args[0].dtype]} of the plain "
+                       "backward and of autograd, bit for bit again"))
+    for args, _ in calls["paged_attention_decode"].values():
+        q, kp = args[0], args[1]
+        err, ok = within(paged_kernel.paged_attention_decode(*args),
+                         paged_attention_ref(*args), TOL[q.dtype])
+        out["paged_attention"] = {
+            "q": list(q.shape), "pages": list(kp.shape),
+            "tables": list(args[3].shape),
+            "dtype": str(q.dtype).split(".")[1],
+            "splits": paged_kernel.split_plan(args[3].shape[1], kp.shape[1]),
+            "max_abs_err": err}
+        checks.append((ok, f"{tag}: the first paged call within "
+                       f"{TOL[q.dtype]} of plain"))
+    return out, checks
+
+
+def phase_examples(dev: str = "cuda", runs: list = EXAMPLE_RUNS) -> dict:
+    """Phase 21: each twin's ``main`` on the card, the launch counts zeroed
+    just before it and read just after; its lines held against the
+    reference's; every kernel of its path launched, the first call of
+    each held against its plain version, and in train_lm every flash call
+    (forward and backward) on the tensor cores."""
+    out = {}
+    for name, argv, file, kernels in runs:
+        expected = (None if file is None else
+                    (EXAMPLE_REFERENCE / file).read_text().splitlines())
+        twin = load_example(f"{name}_torch")
+        reset_model_launches()
+        t0 = time.perf_counter()
+        with FirstCalls(FIRST_CALLS) as first:
+            got = twin.main(argv + ["--device", dev])
+        sync(dev)
+        seconds = time.perf_counter() - t0
+        launched = {k: v for k, v in model_launches().items() if v}
+        rec = {"argv": argv, "seconds": seconds, "launches": launched,
+               "flash_variants": dict(flash_kernel.variant_launches),
+               "flash_bwd_variants": dict(flash_kernel.bwd_variant_launches)}
+        emit(phase21={name: rec})           # before its checks
+        tag = f"phase 21 {name}"
+        for k in kernels:
+            check(launched.get(k, 0) > 0, f"{tag}: {k} launched")
+        if name == "train_lm":
+            check(rec["flash_variants"]["mma"]
+                  == launched.get("flash_attention", 0)
+                  and rec["flash_bwd_variants"]["mma"]
+                  == launched.get("flash_attention_bwd", 0),
+                  f"{tag}: every flash call on the tensor cores")
+        kept, checks = hold_first_calls(first.calls, tag)
+        del first
+        emit(phase21_first_calls={name: kept})  # before its checks
+        for cond, what in checks:
+            check(cond, what)
+        held = {"first_calls": kept, **check_twin(name, got, expected)}
+        emit(phase21_held={name: held})
+        rec.update(held)
+        out[name] = rec
+    torch.cuda.empty_cache()
+    return out
+
+
+def merge_examples(kernels: list, out: dict) -> None:
+    """Count phase 21's launches in the rows of the kernels the twins
+    launch: ``launches``, ``by_path`` and flash's variants."""
+    for row in kernels:
+        name = row["name"]
+        for twin, rec in out.items():
+            n = rec["launches"].get(name, 0)
+            if not n:
+                continue
+            row.setdefault("by_path", {})[
+                f"examples/{twin}_torch.py (phase 21)"] = n
+            row["launches"] += n
+            if name == "flash_attention":
+                for kind, k in rec["flash_variants"].items():
+                    row["launches_by_variant"][kind] += k
+
+
 def timings(card: str, kernels: list) -> dict:
     return {"card": card, "kernels": [
         {k: v for k, v in d.items() if k in (
@@ -5008,8 +5218,9 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
                     help="comma-separated phases to run (4 needs 3, 8 "
                          "needs 7, 12 needs 11); the result lines print "
-                         "only when all twenty run")
-    phases = {int(p) for p in ap.parse_args().phases.split(",")}
+                         "only when all twenty-one run")
+    args = ap.parse_args()
+    phases = {int(p) for p in args.phases.split(",")}
     for later, first in ((4, 3), (8, 7), (12, 11)):
         if later in phases and first not in phases:
             ap.error(f"phase {later} needs phase {first}")
@@ -5189,6 +5400,10 @@ def main() -> int:
         merge_families(kernels, by_shape, dense_out,
                        "dense configs' prefill (phase 20)")
         merge_dense_engine(kernels, engine, entry)
+    if 21 in phases:
+        examples = phase_examples()
+        emit(phase21_seconds=seconds(), card=card)
+        merge_examples(kernels, examples)
     if phases != set(ALL_PHASES):
         return 0
     emit(kernels=kernels)

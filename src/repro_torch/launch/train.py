@@ -87,6 +87,10 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int,
     restarts and events, and the state; ``metrics`` beside ``losses``
     holds every logged step's loss, grad norm and lr."""
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"train_loop(device={str(device)!r}): no CUDA "
+                           "card visible; pass device='cpu' to train on the "
+                           "CPU")
     if not group_initialised() and model_parallel != 1:
         raise RuntimeError(
             f"model_parallel={model_parallel} needs a process group: call "

@@ -13,9 +13,14 @@ its plain version on the same seeded inputs: the Bloom probes bit for bit,
 attention within fp32 2e-5 / bf16 2e-2, the scans within 1e-4, the
 training backward's kernels within 1e-4 (fp32) / 2e-2 (bf16) of each
 gradient's largest and bit for bit from one launch to the next, and a
-store on the card publishes the CPU store's rows byte for byte.
+store on the card publishes the CPU store's rows byte for byte.  The
+example twins (``examples/*_torch.py``) run on the card at their smallest
+sizes, each launching its path's kernels, their lines those of the
+reference's examples (``tests/data/examples_reference``) or of a CPU run.
 """
 import json
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -721,3 +726,70 @@ def test_sharded_step_matches_unsharded_step(card):
     finally:
         dist.destroy_process_group()
     assert plain_launches == sharded_launches == 2 * cfg.num_layers
+
+
+# ----------------------------------------------------------------------
+# the example twins
+# ----------------------------------------------------------------------
+ROOT = Path(__file__).resolve().parents[1]
+EXAMPLE_REFERENCE = ROOT / "tests" / "data" / "examples_reference"
+sys.path.insert(0, str(ROOT))
+try:
+    from chip_smoke import load_example, wall_free  # noqa: E402
+finally:
+    sys.path.remove(str(ROOT))
+
+
+def _twin_launches(run) -> dict:
+    """Every kernel wrapper's launches during ``run()``."""
+    for mod in (bloom_kernel, flash_kernel, paged_kernel):
+        mod.reset_launches()
+    run()
+    return {**bloom_kernel.launches, **flash_kernel.launches,
+            **paged_kernel.launches,
+            "flash_bwd_mma": flash_kernel.bwd_variant_launches["mma"]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,argv,file", [
+    ("quickstart", [], "quickstart.txt"),
+    ("ycsb_demo", ["--quick"], "ycsb_demo_quick.txt")])
+def test_store_twin_on_card(card, name, argv, file):
+    """The reference example's lines, every read probed by the pairs
+    kernel on the card."""
+    out = []
+    launched = _twin_launches(lambda: out.extend(
+        load_example(f"{name}_torch").main(argv + ["--device", "cuda"])))
+    assert "".join(line + "\n" for line in out) == \
+        (EXAMPLE_REFERENCE / file).read_text()
+    assert launched["bloom_probe_pairs"] > 0
+
+
+@pytest.mark.gpu
+def test_serve_paged_twin_on_card(card):
+    """Prefill on flash and decode on paged at page size 8; the engine's
+    counters and every request's tokens those of the CPU run."""
+    out = {}
+    launched = _twin_launches(lambda: out.update(
+        load_example("serve_paged_torch").main(["--device", "cuda"])))
+    cpu = load_example("serve_paged_torch").main(["--device", "cpu"])
+    assert out["stats"] == cpu["stats"]
+    assert wall_free(out["lines"]) == wall_free(cpu["lines"])
+    assert out["tokens"] == cpu["tokens"]
+    assert launched["flash_attention"] > 0 and launched["paged_attention"] > 0
+
+
+@pytest.mark.gpu
+def test_train_lm_twin_on_card(card):
+    """The default size (D 32): the reference example's model and restarts
+    lines, the loss falls, and every attention call runs the flash
+    forward and both tensor-core backward kernels."""
+    out = {}
+    launched = _twin_launches(lambda: out.update(
+        load_example("train_lm_torch").main(["--device", "cuda"])))
+    lines = [line for line in out["lines"] if not line.startswith("[train]")]
+    assert "".join(line + "\n" for line in lines[:2]) == \
+        (EXAMPLE_REFERENCE / "train_lm.txt").read_text()
+    assert out["losses"][-1][1] < out["losses"][0][1]
+    assert launched["flash_attention"] > 0
+    assert launched["flash_attention_bwd"] == launched["flash_bwd_mma"] > 0

@@ -527,12 +527,17 @@ def _imports(path):
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """The port, chip_smoke.py and the card's tests import neither JAX nor
-    the JAX package, nor ``benchmarks`` (whose linter imports ``repro``),
-    in their source or in a fresh interpreter."""
+    """The port, its example twins, chip_smoke.py and the card's tests
+    import neither JAX nor the JAX package, nor ``benchmarks`` (whose
+    linter imports ``repro``), in their source or in a fresh
+    interpreter."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py",
-              ROOT / "tests" / "torch_dist_ranks.py"]
+    twins = [ROOT / "examples" / f"{name}_torch.py" for name in
+             ("quickstart", "ycsb_demo", "serve_paged", "train_lm")]
+    assert all(path.is_file() for path in twins)
+    files += twins + [ROOT / "chip_smoke.py",
+                      ROOT / "tests" / "test_torch_gpu.py",
+                      ROOT / "tests" / "torch_dist_ranks.py"]
     assert len(files) > 20
     banned = ("jax", "jaxlib", "repro", "benchmarks")
     for path in files:
@@ -547,7 +552,12 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.workloads.drift, repro_torch.workloads.serving, "
             "repro_torch.sharding, repro_torch.launch.mesh, "
             "repro_torch.launch.specs, repro_torch.models.moe_sharded, "
-            "repro_torch.roofline, repro_torch.launch.dryrun; "
+            "repro_torch.roofline, repro_torch.launch.dryrun, "
+            "importlib.util\n"
+            f"for path in {[str(p) for p in twins]}:\n"
+            "    spec = importlib.util.spec_from_file_location('twin', path)\n"
+            "    spec.loader.exec_module(\n"
+            "        importlib.util.module_from_spec(spec))\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {banned}]; "
             "print(bad); assert not bad")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
