@@ -1,0 +1,3 @@
+"""The benchmark of the PyTorch and CUDA port (``repro_torch``) on one
+NVIDIA H100.  ``run.py`` runs one cell of ``BENCHMARK.json``; see
+``README.md``."""
